@@ -7,19 +7,28 @@ Phases (every failure raises and ends the run with a non-zero code):
   1. device: name and power limit, build the CUDA kernels (timed);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the serving path's shapes (bf16 and f32, padding, ragged lengths,
-     a window), with its time, its plain version's time, a PyTorch call
-     that computes the same function (a yardstick only) and its bound;
+     a window; for ssd_scan an initial state, a padded tail and a single
+     chunk), with its time, its plain version's time, a PyTorch call that
+     computes the same function where one exists (a yardstick only) and
+     its bound;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged;
+  3b. model parity: mamba2-370m at full width and 2 layers in f32, a
+     1000-token prompt padded to 2048 plus 4 teacher-forced decode steps,
+     CPU against GPU;
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
      cluster with prefix cache and chunked prefill;
-  6. numbers: wall-clock TTFT, TPOT and tokens/s of phases 4-5.
-The kernel launch counters are set to 0 just before each serving phase
-and read just after it. The last lines are a JSON object per kernel, the
-card's name and power limit, and {"ok": true, "device": {...}}.
+  4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
+     layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
+     through submit + run_until_done, then run_continuous;
+  6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases.
+The kernel launch counters are set to 0 just before each serving run and
+read just after it; each run must have launched every kernel of its
+path. The last lines are a JSON object per kernel, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 
 ``--phases`` runs a subset (``--phases 1,2``: build and kernel checks).
 """
@@ -51,9 +60,17 @@ KERNEL_INFO = {
     "paged_decode_attention": dict(
         source="src/repro_torch/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/paged_decode_attention/kernel.py:81"),
+    "ssd_scan": dict(
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:78"),
 }
 MAX_LEN = 3072
 IMAGE_TOKENS = 2880
+SSM_MAX_LEN = 2048      # mamba2's training context, a multiple of its chunk
+SSM_PROMPTS = (64, 256, 1000, 1900)
+# the SSD scan's final state is f32 on both sides, from the same rounded
+# inputs: only the summation order differs, whatever the input dtype
+SSD_STATE_TOL = TOL["float32"]
 
 
 def log(msg: str) -> None:
@@ -291,6 +308,80 @@ def check_kernels(torch, dev):
     return results
 
 
+def check_ssd(torch, dev):
+    """ssd_scan against its plain version at mamba2-370m's prefill shape
+    (B 1, S 2048, H 32, P 64, N 128, chunk 256) and a single chunk."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    B, S, H, P, N, chunk = 1, SSM_MAX_LEN, 32, 64, 128, 256
+
+    def inputs(dtype, s=S, init=False, n_pad=0):
+        dt_ = getattr(torch, dtype)
+
+        def randn(shape, scale=1.0):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        dt = torch.nn.functional.softplus(randn((B, s, H)))
+        if n_pad:
+            dt[:, -n_pad:] = 0
+        return (randn((B, s, H, P)).to(dt_), dt,
+                -torch.exp(randn((H,), 0.3)), randn((B, s, N), 0.3).to(dt_),
+                randn((B, s, N), 0.3).to(dt_), torch.ones((H,), device=dev),
+                randn((B, H, P, N), 0.1) if init else
+                torch.zeros((B, H, P, N), device=dev))
+
+    errs = []
+    for label, dtype, kw in [
+            ("S2048", "bfloat16", {}),
+            ("S2048", "float32", {}),
+            ("S2048 init state", "bfloat16", dict(init=True)),
+            ("S2048 dt=0 over the last 100", "bfloat16", dict(n_pad=100)),
+            ("S96 one chunk of 96", "bfloat16", dict(s=96))]:
+        args = inputs(dtype, **kw)
+        c = min(chunk, args[0].shape[1])
+        y, fin = ssd_scan(*args[:6], c, args[6])
+        yr, fr = ssd_chunked(*args[:6], c, args[6])
+        err = (y.float() - yr.float()).abs().max().item()
+        serr = (fin - fr).abs().max().item()
+        ok = (torch.allclose(y.float(), yr.float(), **TOL[dtype])
+              and torch.allclose(fin, fr, **SSD_STATE_TOL))
+        log(f"  ssd_scan [{label}] {dtype}: y max_abs_err={err:.3e} "
+            f"tol={TOL[dtype]}; state max_abs_err={serr:.3e} "
+            f"tol={SSD_STATE_TOL} {'ok' if ok else 'FAIL'}")
+        assert ok and torch.isfinite(y.float()).all(), (label, err, serr)
+        if dtype == "bfloat16":
+            errs.append(err)
+    # the serving path's call: bf16, the fresh cache's zero state as init
+    args = inputs("bfloat16")
+    x = args[0]
+    # work of the kernel's own 64-token sub-chunks: C·Bᵀ and the
+    # intra-chunk product over lower-triangular pairs, the inter-chunk
+    # term and the state update over every (token, p, n)
+    sub = 64
+    pairs = sum(n * (n + 1) // 2 for n in
+                [sub] * (S // sub) + ([S % sub] if S % sub else []))
+    flops = 2 * pairs * (N + H * P) + 2 * 2 * H * S * P * N
+    nbytes = (2 * 2 * x.numel() + 2 * 2 * B * S * N + 4 * B * S * H
+              + 4 * 2 * H + 4 * 2 * B * H * P * N)
+    res = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: ssd_scan(*args[:6], chunk, args[6])),
+        plain_ms=time_ms(torch, lambda: ssd_chunked(*args[:6], chunk,
+                                                    args[6]), n=20),
+        library_ms=None,    # no single PyTorch call computes the SSD scan
+        bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
+        bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
+        else "bytes",
+        shape=f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} bf16, "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB")
+    log(f"  ssd_scan: ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+        f"library_ms=None bound_ms={res['bound_ms']:.4f} "
+        f"({res['bound_by']}) at {res['shape']}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: model parity, CPU plain versions vs GPU kernels
 # ---------------------------------------------------------------------------
@@ -356,8 +447,63 @@ def model_parity(torch, dev):
     torch.cuda.empty_cache()
 
 
+def ssm_parity(torch, dev):
+    """mamba2-370m at full width, 2 layers, f32: a 1000-token prompt padded
+    to 2048 (the engine's dense prefill) and 4 teacher-forced decode steps
+    on the CPU (plain SSD scan) and on the GPU (the ssd_scan kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_forward, prefill_forward
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.models.transformer import make_caches
+
+    base = get_config("mamba2-370m")
+    cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(7),
+                             device="cpu", dtype=torch.float32)
+    params_gpu = map_tree(lambda t: t.to(dev), params_cpu)
+    n = 1000
+    toks = torch.zeros((1, SSM_MAX_LEN), dtype=torch.int32)
+    toks[0, :n] = torch.tensor([(7 * i + 3) % cfg.vocab for i in range(n)])
+    forced = [5, 17, 42, 99]
+
+    def run(params, device):
+        caches = make_caches(cfg, 1, SSM_MAX_LEN, dtype=torch.float32,
+                             device=device)
+        logits, caches = prefill_forward(
+            params, cfg, toks.to(device), caches,
+            lengths=torch.tensor([n], dtype=torch.int32, device=device))
+        out = [logits.cpu()]
+        for t in forced:
+            logits, caches = decode_forward(
+                params, cfg, torch.tensor([t], dtype=torch.int32,
+                                          device=device), caches)
+            out.append(logits.cpu())
+        return out
+
+    t0 = time.perf_counter()
+    ref = run(params_cpu, "cpu")
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    got = run(params_gpu, dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["ssd_scan"]
+    assert launches == cfg.n_layers, launches     # one scan a layer
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = (a - b).abs().max().item()
+        ok = torch.allclose(a, b, **PARITY_TOL)
+        log(f"  step {i}: logits max_abs_err={err:.3e} (max |logit| "
+            f"{b.abs().max().item():.3e}) tol={PARITY_TOL} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok and torch.isfinite(a).all(), (i, err)
+    log(f"  cpu {t1 - t0:.1f} s, gpu {time.perf_counter() - t1:.1f} s, "
+        f"{launches} ssd_scan launches")
+    del params_gpu
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: serving at full width
+# phases 4, 5, 4b: serving at full width
 # ---------------------------------------------------------------------------
 
 def instrument(torch, engine):
@@ -382,40 +528,48 @@ def instrument(torch, engine):
     engine.insert, engine.decode_step = timed_insert, timed_decode_step
 
 
-def serve(torch, dev, cfg, params, mode):
+def ssm_requests(cfg):
+    """The four text-only requests of the mamba2 phase: prompts of
+    SSM_PROMPTS tokens, 16 new tokens each."""
+    from repro_torch.serving.request import Request
+    return [Request(prompt_tokens=[(13 * i + 7 * j + 1) % cfg.vocab
+                                   for j in range(n)], max_new_tokens=16)
+            for i, n in enumerate(SSM_PROMPTS)]
+
+
+def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
+          **kw):
+    """Serve ``reqs`` on a fresh EPDCluster with the launch counters set
+    to 0 just before and read just after; every kernel in ``path`` must
+    have launched."""
     from repro_torch.core.cluster import EPDCluster
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import smoke_requests
 
-    kw = {}
-    if mode == "paged":
-        kw = dict(paged=True, page_size=16, prefix_cache=True,
-                  chunked_prefill=True, prefill_chunk=512)
-    cluster = EPDCluster(cfg, params, max_batch=4, max_len=MAX_LEN,
+    cluster = EPDCluster(cfg, params, max_batch=4, max_len=max_len,
                          device=dev, **kw)
     for eng in cluster.decode_engines:
         instrument(torch, eng)
-    reqs = smoke_requests(cfg, IMAGE_TOKENS)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
         r.t_arrival = t0
-    if mode == "dense":
+    if continuous:
+        done = cluster.run_continuous(reqs)
+    else:
         for r in reqs:
             cluster.submit(r)
         done = cluster.run_until_done()
-    else:
-        done = cluster.run_continuous(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     assert len(done) == len(reqs) and not cluster.report.lost, \
         f"{mode}: {len(done)}/{len(reqs)} completed"
+    assert all(counts[k] > 0 for k in path), (mode, counts)
     for r in reqs:
         assert len(r.output_tokens) == r.max_new_tokens, r.output_tokens
         assert all(0 <= t < cfg.vocab for t in r.output_tokens)
-    if mode == "paged":
+    if kw.get("paged"):
         for eng in [cluster.prefill_engine, *cluster.decode_engines]:
             eng.assert_no_page_leaks()
         assert cluster.decode_engine.pool.n_used == 0
@@ -436,11 +590,17 @@ def serve(torch, dev, cfg, params, mode):
     return stats
 
 
+ALL_PHASES = ("1", "2", "3", "3b", "4", "5", "4b")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES))
     args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",") if p}
+    phases = {p for p in args.phases.split(",") if p}
+    unknown = phases - set(ALL_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; known: {ALL_PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -454,6 +614,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve import smoke_requests
     from repro_torch.models.params import count_params, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -477,16 +638,22 @@ def main() -> int:
                 log(f"    {kname}: {line.strip()}")
 
     kernels = {}
-    if 2 in phases:
+    if "2" in phases:
         log("[2] kernels vs plain versions at the serving shapes")
         kernels = check_kernels(torch, dev)
-    if 3 in phases:
+        kernels["ssd_scan"] = check_ssd(torch, dev)
+    if "3" in phases:
         log("[3] model parity, llava-next-mistral-7b full width, 2 layers, "
             "f32, CPU plain vs GPU kernels")
         model_parity(torch, dev)
+    if "3b" in phases:
+        log("[3b] model parity, mamba2-370m full width, 2 layers, f32, "
+            "CPU plain vs GPU ssd_scan")
+        ssm_parity(torch, dev)
 
     serve_stats = {}
-    if phases & {4, 5}:
+    attn = ("flash_attention", "decode_attention", "paged_decode_attention")
+    if phases & {"4", "5"}:
         cfg = get_config("llava-next-mistral-7b")
         t0 = time.perf_counter()
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -495,23 +662,49 @@ def main() -> int:
         log(f"[4] {cfg.name}: {count_params(params) / 1e9:.3f} B params in "
             f"bf16 ({cfg.n_layers} layers), made in "
             f"{time.perf_counter() - t0:.1f} s")
-        if 4 in phases:
+        if "4" in phases:
             log("[4] serve, dense: submit + run_until_done")
-            serve_stats["dense"] = serve(torch, dev, cfg, params, "dense")
-            c = serve_stats["dense"]["counts"]
-            assert c["flash_attention"] > 0 and c["decode_attention"] > 0, c
-        if 5 in phases:
+            serve_stats["dense"] = serve(
+                torch, dev, cfg, params, "dense",
+                smoke_requests(cfg, IMAGE_TOKENS), MAX_LEN, False,
+                attn[:2])
+        if "5" in phases:
             log(f"[5] serve, paged (prefix cache, chunked prefill 512): "
                 f"run_continuous, {cfg.n_layers} layers")
-            serve_stats["paged"] = serve(torch, dev, cfg, params, "paged")
-            c = serve_stats["paged"]["counts"]
-            assert c["paged_decode_attention"] > 0 and \
-                c["flash_attention"] > 0, c
+            serve_stats["paged"] = serve(
+                torch, dev, cfg, params, "paged",
+                smoke_requests(cfg, IMAGE_TOKENS), MAX_LEN, True,
+                (attn[0], attn[2]), paged=True, page_size=16,
+                prefix_cache=True, chunked_prefill=True, prefill_chunk=512)
         if "dense" in serve_stats and "paged" in serve_stats:
             same = (serve_stats["dense"]["outputs"]
                     == serve_stats["paged"]["outputs"])
             log(f"[5] dense and paged greedy outputs identical: {same} "
                 f"(bf16; not required)")
+        del params
+        torch.cuda.empty_cache()
+    if "4b" in phases:
+        cfg = get_config("mamba2-370m")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[4b] {cfg.name}: {count_params(params) / 1e9:.3f} B params in "
+            f"bf16 ({cfg.n_layers} layers), made in "
+            f"{time.perf_counter() - t0:.1f} s; dense EPDCluster, max_len "
+            f"{SSM_MAX_LEN}, prompts {SSM_PROMPTS}")
+        for mode, continuous in (("mamba2 serial", False),
+                                 ("mamba2 continuous", True)):
+            log(f"[4b] serve {mode}: "
+                f"{'run_continuous' if continuous else 'submit + run_until_done'}")
+            serve_stats[mode] = serve(
+                torch, dev, cfg, params, mode, ssm_requests(cfg),
+                SSM_MAX_LEN, continuous, ("ssd_scan",))
+        same = (serve_stats["mamba2 serial"]["outputs"]
+                == serve_stats["mamba2 continuous"]["outputs"])
+        log(f"[4b] serial and continuous greedy outputs identical: {same}")
+        del params
+        torch.cuda.empty_cache()
 
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
@@ -532,7 +725,7 @@ def main() -> int:
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms")))
-    if phases >= {2, 4, 5}:
+    if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row
     print(json.dumps({"kernels": rows}), flush=True)

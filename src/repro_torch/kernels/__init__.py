@@ -1,1 +1,1 @@
-"""Attention kernels: hand-written CUDA for Hopper beside their plain PyTorch versions."""
+"""Hand-written CUDA kernels for Hopper beside their plain PyTorch versions."""

@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +98,9 @@ _SIGNATURES = {
     # nq, nkv, hd, dtype, window, split_len, nsplit, scale, stream
     "paged_decode_attention": ("paged_decode_attention_fwd",
                                [_P] * 9 + [_I] * 10 + [_F, _P]),
+    # x, dt, a, b, c, d_skip, init (or null), y, fin, cb, B, S, H, P, N,
+    # dtype, stream
+    "ssd_scan": ("ssd_scan_fwd", [_P] * 10 + [_I] * 6 + [_P]),
 }
 
 

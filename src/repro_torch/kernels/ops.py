@@ -1,10 +1,11 @@
-"""Attention dispatch used by the model layers.
+"""Kernel dispatch used by the model layers.
 
 Keeps the routing of ``repro/kernels/ops.py``: a single-token causal
 query goes to the decode kernel, any other query to the flash kernel,
-and decode against a paged pool to the paged kernel. Each wrapper runs
-its CUDA kernel on CUDA tensors and its plain PyTorch version on CPU
-tensors; there is no other switch.
+decode against a paged pool to the paged kernel, and the SSD prefill
+scan to the ssd_scan kernel. Each wrapper runs its CUDA kernel on CUDA
+tensors and its plain PyTorch version on CPU tensors; there is no other
+switch.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import torch
 from repro_torch.kernels.decode_attention import kernel as _decode
 from repro_torch.kernels.flash_attention import kernel as _flash
 from repro_torch.kernels.paged_decode_attention import kernel as _paged
+from repro_torch.kernels.ssd_scan import kernel as _ssd
 
 _WRAPPERS = {"flash_attention": _flash, "decode_attention": _decode,
-             "paged_decode_attention": _paged}
+             "paged_decode_attention": _paged, "ssd_scan": _ssd}
 
 
 def attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
@@ -41,6 +43,11 @@ def paged_attention(q, k_pool, v_pool, block_tbl, lengths, *,
     """
     return _paged.paged_decode_attention(q, k_pool, v_pool, block_tbl,
                                          lengths, window=window)
+
+
+def ssd(x, dt, a, b, c, d_skip, chunk: int, init_state=None):
+    """Chunked SSD scan. See ssd_scan/ref.py for shapes."""
+    return _ssd.ssd_scan(x, dt, a, b, c, d_skip, chunk, init_state)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -2,12 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--layers N]
 
-Builds llava-next-mistral-7b in bf16 (random weights, seed 0) and serves
-the ``chip_smoke.py`` requests once on a dense ``EPDCluster`` to pay the
-first-call costs. Then, on a fresh cluster, it times each ``submit``
-(Encode + Prefill + insert of one request) and ``--steps`` decode steps
-with the host clock after a ``torch.cuda.synchronize()``, and traces the
-first (image) submit and the decode steps with ``torch.profiler``. It
+Builds llava-next-mistral-7b (or ``--arch``, e.g. ``mamba2-370m
+--max-len 2048``) in bf16 (random weights, seed 0) and serves the
+requests of ``launch/serve.py:smoke_requests`` once on a dense
+``EPDCluster`` to pay the first-call costs. Then, on a fresh cluster, it
+times each ``submit`` (Encode + Prefill + insert of one request) and
+``--steps`` decode steps with the host clock after a
+``torch.cuda.synchronize()``, and traces the first submit (an image
+request where the model has a frontend) and the decode steps with
+``torch.profiler``. It
 prints, for each traced phase, the wall time, the device time summed over
 kernels and its share of the wall time (the device-busy share), the
 kernel launches, and the kernels that take the most device time. The
@@ -128,7 +131,7 @@ def main() -> None:
         print(f"decode step ms (untraced): "
               f"{[round(x, 3) for x in untraced]} (median "
               f"{statistics.median(untraced):.3f})")
-    report("prefill (first submit, image request)", prof_p, submit_ms[0])
+    report("prefill (first submit)", prof_p, submit_ms[0])
     report("decode steps", prof_d, sum(step_ms), len(step_ms))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

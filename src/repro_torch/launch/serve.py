@@ -3,6 +3,9 @@
   # random weights from a seed through the full E->P->D pipeline:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llava-next-mistral-7b --requests 8
+  # the attention-free SSM: text only, so P->D through ssd_scan
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch mamba2-370m --max-len 2048
 
 Runs the model at its full width and depth in bf16 by default
 (``--reduced`` for the small CPU-test variant, ``--device cpu`` for the

@@ -1,0 +1,142 @@
+"""Mamba2 / SSD (state-space duality) layer: chunked matmul form.
+
+Same functions as ``repro/models/ssm.py``. The prefill scan goes through
+``repro_torch.kernels.ops.ssd`` (the ssd_scan kernel on the card, its
+plain version ``kernels/ssd_scan/ref.py`` on the CPU); the single-token
+decode update is plain tensor code, as in the reference. Where the
+reference returns a new cache, ``ssm_block`` writes the state and conv
+tail views it is given in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as K
+from repro_torch.models.layers import rms_norm
+
+
+class SSMCache(NamedTuple):
+    """Stacked per-repeat recurrent state.
+
+    state: (repeats, batch, heads, head_dim, state_dim) f32, the SSD state
+    conv:  (repeats, batch, conv_width-1, conv_dim), the conv tail
+    """
+
+    state: torch.Tensor
+    conv: torch.Tensor
+
+
+def make_ssm_cache(cfg: ModelConfig, n_repeats: int, batch: int,
+                   dtype=torch.float32, device="cpu") -> SSMCache:
+    ssm = cfg.ssm
+    inner = ssm.inner_dim(cfg.d_model)
+    nh = ssm.n_heads(cfg.d_model)
+    conv_dim = inner + 2 * ssm.state_dim
+    return SSMCache(
+        torch.zeros((n_repeats, batch, nh, ssm.head_dim, ssm.state_dim),
+                    dtype=torch.float32, device=device),
+        torch.zeros((n_repeats, batch, ssm.conv_width - 1, conv_dim),
+                    dtype=dtype, device=device))
+
+
+def ssd_decode_step(x, dt, a, b, c, d_skip, state):
+    """Single-token SSD state update.
+
+    x: (B,H,P), dt: (B,H), b,c: (B,N), state: (B,H,P,N) f32.
+    Returns (y (B,H,P) in x's dtype, new state f32).
+    """
+    f32 = torch.float32
+    x32, dt32 = x.to(f32), dt.to(f32)
+    dA = torch.exp(dt32 * a)                          # (B,H)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt32, b.to(f32), x32)
+    new_state = state * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", new_state, c.to(f32))
+    y = y + x32 * d_skip[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+def _causal_conv(xbc, w, bias, tail=None):
+    """Depthwise causal conv, width W. xbc: (B,S,D), w: (W,D), tail:
+    (B,W-1,D). The new tail is the last W-1 rows of the input as given,
+    padding included, exactly as the reference takes it."""
+    W = w.shape[0]
+    if tail is None:
+        pad = torch.zeros((xbc.shape[0], W - 1, xbc.shape[-1]),
+                          dtype=xbc.dtype, device=xbc.device)
+    else:
+        pad = tail.to(xbc.dtype)
+    full = torch.cat([pad, xbc], dim=1)               # (B, S+W-1, D)
+    out = sum(full[:, i:i + xbc.shape[1]] * w[i] for i in range(W))
+    new_tail = full[:, -(W - 1):] if W > 1 else None
+    return out + bias, new_tail
+
+
+def _softplus(x):
+    """Exact ``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``torch.nn.functional.softplus`` switches to ``x`` above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def ssm_block(p, x, cfg: ModelConfig, *,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              positions=None):
+    """One Mamba2 block with residual.
+
+    cache: per-repeat (state (B,H,P,N), conv_tail (B,W-1,D)) views, or
+      None; written in place with the new state and tail.
+    positions: (B,S) with -1 for padding: padded steps get dt=0 so they
+      leave the recurrent state untouched.
+    x: (B,S,d). Returns (out, cache).
+    """
+    ssm = cfg.ssm
+    d = cfg.d_model
+    inner = ssm.inner_dim(d)
+    nh = ssm.n_heads(d)
+    N = ssm.state_dim
+    bsz, S = x.shape[:2]
+
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = h @ p["w_in"]                            # (B,S, 2*inner+2N+nh)
+    z = zxbcdt[..., :inner]
+    xbc = zxbcdt[..., inner: 2 * inner + 2 * N]
+    dt = zxbcdt[..., 2 * inner + 2 * N:]              # (B,S,nh)
+    dt = _softplus(dt.float() + p["dt_bias"].float())
+    if positions is not None:
+        dt = dt * (positions >= 0).float()[..., None]
+
+    a = -torch.exp(p["a_log"].float())                # (nh,)
+    dsk = p["d_skip"].float()
+
+    decode = cache is not None and S == 1
+    tail = cache[1] if cache is not None else None
+    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], tail)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :inner].reshape(bsz, S, nh, ssm.head_dim)
+    bm = xbc[..., inner: inner + N]
+    cm = xbc[..., inner + N:]
+
+    if decode:
+        y, new_state = ssd_decode_step(
+            xs[:, 0], dt[:, 0], a, bm[:, 0], cm[:, 0], dsk, cache[0])
+        y = y[:, None]
+    else:
+        init = cache[0] if cache is not None else None
+        chunk = min(ssm.chunk_size, S)
+        if S % chunk:
+            chunk = S   # one chunk for odd small sequences
+        y, new_state = K.ssd(xs.contiguous(), dt.contiguous(), a,
+                             bm.contiguous(), cm.contiguous(), dsk, chunk,
+                             init)
+    if cache is not None:
+        cache[0].copy_(new_state)
+        cache[1].copy_(new_tail)
+
+    y = y.reshape(bsz, S, inner)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["out_norm"],
+                 cfg.norm_eps)
+    return x + y @ p["w_out"], cache

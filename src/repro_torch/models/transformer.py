@@ -1,11 +1,12 @@
 """Decoder backbone: caches, input embedding, the layer loop, LM head.
 
-Same functions as ``repro/models/transformer.py`` for attention-only
-decoders with gated MLPs. The reference's ``lax.scan`` over pattern
-repeats becomes a Python loop over ``r`` that hands each layer its slice
-of the stacked parameters and cache views; the views are written in
-place. SSM mixers, MoE ffns and encoder-decoder models raise
-``NotImplementedError`` (still to port, see ROADMAP.md).
+Same functions as ``repro/models/transformer.py`` for decoders of
+attention and Mamba2 (SSM) mixers with gated MLPs or no ffn. The
+reference's ``lax.scan`` over pattern repeats becomes a Python loop over
+``r`` that hands each layer its slice of the stacked parameters and
+cache views; the views are written in place. MoE ffns and
+encoder-decoder models raise ``NotImplementedError`` (still to port, see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 _TODO = "not ported yet (see ROADMAP.md, Queue 1)"
 
@@ -25,7 +27,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder / cross-attention {_TODO}")
     for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "swa"):
+        if spec.mixer not in ("attn", "swa", "ssm"):
             raise NotImplementedError(f"{cfg.name}: {spec.mixer} mixer {_TODO}")
         if spec.ffn not in ("mlp", "none"):
             raise NotImplementedError(f"{cfg.name}: {spec.ffn} ffn {_TODO}")
@@ -39,13 +41,15 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 dtype=torch.float32, device="cpu", layout: str = "dense",
                 page_size: int = 16, n_pages: int = 0,
                 with_attn: bool = True) -> Dict[str, Any]:
-    """Cache dict for serving, one "attn" entry per pattern position.
+    """Cache dict for serving, one "attn" and one "ssm" entry per pattern
+    position (None where the mixer has no such state).
 
     layout="paged": attention KV lives in a shared pool of ``n_pages``
     physical pages of ``page_size`` tokens (page 0 is the trash page) and
     the dict grows a "pages" block table (batch, max_len // page_size).
-    with_attn=False leaves the attention entries None (side state only,
-    for a caller that swaps in its own pool).
+    SSM state stays slot-indexed in either layout. with_attn=False leaves
+    the attention entries None (side state only, for a caller that swaps
+    in its own pool).
     """
     check_supported(cfg)
     paged = layout == "paged"
@@ -56,8 +60,14 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
         if n_pages < 2:
             raise ValueError("paged layout needs n_pages >= 2 "
                              "(page 0 is the reserved trash page)")
-    attn = []
+    attn, ssm = [], []
     for spec in cfg.pattern:
+        if spec.mixer == "ssm":
+            attn.append(None)
+            ssm.append(SSM.make_ssm_cache(cfg, cfg.n_repeats, batch, dtype,
+                                          device))
+            continue
+        ssm.append(None)
         if not with_attn:
             attn.append(None)
         elif paged:
@@ -66,8 +76,7 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
         else:
             attn.append(L.make_attn_cache(cfg, cfg.n_repeats, batch, max_len,
                                           dtype, device))
-    caches = {"attn": tuple(attn), "ssm": tuple(None for _ in cfg.pattern),
-              "cross": None,
+    caches = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": None,
               "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged:
         caches["pages"] = torch.zeros((batch, max_len // page_size),
@@ -78,7 +87,7 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 def cache_tensors(caches) -> list:
     """Every tensor of a cache dict (the reference's ``jax.tree.leaves``)."""
     out = []
-    for e in caches["attn"]:
+    for e in (*caches["attn"], *caches["ssm"]):
         if e is not None:
             out.extend(e)
     out.append(caches["len"])
@@ -168,6 +177,12 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
                     cache=tuple(t[r] for t in c) if c is not None else None,
                     cur_len=cur_len, pages=pages,
                     prefix_len=prefix_len, pos_base=pos_base)
+            elif spec.mixer == "ssm":
+                c = caches["ssm"][i] if caches is not None else None
+                h, _ = SSM.ssm_block(
+                    {kk: t[r] for kk, t in p["ssm"].items()}, h, cfg,
+                    cache=(c.state[r], c.conv[r]) if c is not None else None,
+                    positions=positions)
             if spec.ffn == "mlp":
                 h = L.mlp_block({kk: t[r] for kk, t in p["mlp"].items()}, h,
                                 cfg)

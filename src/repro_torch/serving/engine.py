@@ -728,8 +728,15 @@ class Engine:
             if n_shared:
                 self.pool.unref(pages[:n_shared])
 
-        # attention-only decoders: the slot's side state is its length
-        side = {"ssm": self.caches["ssm"], "cross": self.caches["cross"],
+        # host copies of the slot's own side state (its SSM state and conv
+        # tail, its length): the lock-step decode keeps writing the live
+        # batch tensors while the request is parked
+        def take(t):
+            return t[:, slot:slot + 1].to("cpu", copy=True)
+
+        side = {"ssm": tuple(None if e is None else type(e)(*map(take, e))
+                             for e in self.caches["ssm"]),
+                "cross": self.caches["cross"],
                 "len": self.caches["len"][slot:slot + 1].cpu().clone()}
         pr = PreemptedRequest(req=req, handle=handle,
                               n_shared_pages=n_shared, n_pages=len(pages),

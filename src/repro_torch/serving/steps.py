@@ -20,9 +20,10 @@ from repro_torch.models.model import decode_forward, prefill_forward
 from repro_torch.serving.sampling import sample
 
 
-def _attn_pairs(dst_attn, src_attn):
-    """(dst, src) tensor pairs of two attention-cache tuples."""
-    for d, s in zip(dst_attn, src_attn):
+def _pairs(dst_entries, src_entries):
+    """(dst, src) tensor pairs of two per-pattern-position cache tuples
+    ("attn" or "ssm"), skipping positions without that state."""
+    for d, s in zip(dst_entries, src_entries):
         if d is not None:
             yield from zip(d, s)
 
@@ -93,10 +94,13 @@ def make_paged_insert_fn(cfg: ModelConfig):
 
     The attention KV is not touched — its pages are already in the pool
     (same-engine hand-off) or were copied by ``make_page_copy_fn``; this
-    writes the slot's block-table row and length in place.
+    writes the slot's block-table row, length and slot-indexed side state
+    (SSM state and conv tail) in place.
     """
 
     def insert_fn(side, dst_caches, table_row, slot: int):
+        for dst, src in _pairs(dst_caches["ssm"], side["ssm"]):
+            dst[:, slot] = src[:, 0].to(dst.device, dst.dtype)
         lens, pages = dst_caches["len"], dst_caches["pages"]
         lens[slot] = side["len"][0].to(lens.device)
         pages[slot] = table_row.to(device=pages.device, dtype=pages.dtype)
@@ -111,7 +115,7 @@ def make_page_copy_fn():
     pages, in place. O(one request's pages)."""
 
     def copy_fn(src_attn, dst_attn, src_ids, dst_ids):
-        for dst, src in _attn_pairs(dst_attn, src_attn):
+        for dst, src in _pairs(dst_attn, src_attn):
             dst[:, dst_ids.to(dst.device).long()] = src[
                 :, src_ids.to(src.device).long()].to(dst.device, dst.dtype)
         return dst_attn
@@ -137,7 +141,7 @@ def make_page_scatter_fn():
     pages, in place: the device side of preemption swap-in (re-fault)."""
 
     def scatter_fn(attn, data, ids):
-        for pool, d in _attn_pairs(attn, data):
+        for pool, d in _pairs(attn, data):
             pool[:, ids.to(pool.device).long()] = d.to(pool.device,
                                                        pool.dtype)
         return attn
@@ -164,7 +168,9 @@ def make_pool_page_copy_fn():
 def make_insert_fn(cfg: ModelConfig):
     """Copy one request's prefilled cache (batch 1) into batch slot
     ``slot`` of the dense decode cache, in place — the P->D hand-off on
-    the Decode instance."""
+    the Decode instance. Every tensor is copied (attention KV, SSM state
+    and conv tail, length), so the decode cache never aliases the
+    prefill cache."""
 
     def ins(dst, src, slot):
         if src.dim() >= 3 and src.shape[2] != dst.shape[2]:
@@ -177,8 +183,9 @@ def make_insert_fn(cfg: ModelConfig):
         dst[:, slot] = src[:, 0].to(dst.device, dst.dtype)
 
     def insert_fn(src_caches, dst_caches, slot: int):
-        for dst, src in _attn_pairs(dst_caches["attn"], src_caches["attn"]):
-            ins(dst, src, slot)
+        for key in ("attn", "ssm"):
+            for dst, src in _pairs(dst_caches[key], src_caches[key]):
+                ins(dst, src, slot)
         dst_caches["len"][slot] = src_caches["len"][0].to(
             dst_caches["len"].device)
         return dst_caches

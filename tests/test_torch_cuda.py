@@ -6,8 +6,10 @@ Imports neither ``jax`` nor ``repro``, so it runs where the port runs:
 
 Each test skips without a CUDA device (the kernels have no CPU mode).
 Small shapes with the cases of ``tests/test_torch_kernels.py``: padded
-queries, ragged caches, windows, GQA groups 1-8, head dims 32-128; the
-serving shapes are checked by ``chip_smoke.py``.
+queries, ragged caches, windows, GQA groups 1-8, head dims 32-128; for
+the SSD scan the cases of ``tests/test_torch_ssm.py`` plus a padded tail,
+sequences that are no multiple of the kernel's 64-token sub-chunk, and
+an initial state. The serving shapes are checked by ``chip_smoke.py``.
 """
 import pytest
 
@@ -22,6 +24,8 @@ from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -121,6 +125,64 @@ def test_paged_kernel_matches_plain(dev, case, dtype):
         paged_decode_attention(q, kpool, vpool, tbl, ln, window=win),
         paged_decode_attention_ref(q, kpool, vpool, tbl, ln, window=win),
         **TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, P, N, chunk, init, padded tail
+    (2, 64, 4, 32, 16, 16, False, 0),
+    (1, 128, 2, 64, 128, 32, True, 0),
+    (2, 96, 3, 32, 64, 32, True, 0),          # 96 = 64 + a 32-token rest
+    (1, 200, 2, 16, 32, 40, True, 30),        # dt = 0 over the last 30
+    (1, 256, 4, 64, 128, 256, True, 0),       # the model's chunk
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_matches_plain(dev, case, dtype):
+    B, S, H, P, N, chunk, init, n_pad = case
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f32 = torch.float32
+    x = _randn(gen, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), f32, dev))
+    if n_pad:
+        dt[:, -n_pad:] = 0
+    a = -torch.exp(0.3 * _randn(gen, (H,), f32, dev))
+    b = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
+    c = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
+    d = torch.ones((H,), device=dev)
+    s0 = 0.1 * _randn(gen, (B, H, P, N), f32, dev) if init else None
+    ops.reset_launch_counts()
+    y, fin = ssd_scan(x, dt, a, b, c, d, chunk, s0)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    yr, fr = ssd_chunked(x, dt, a, b, c, d, chunk, s0)
+    assert y.dtype == dtype and fin.dtype == f32
+    torch.testing.assert_close(y, yr, **TOL[dtype])
+    # the state is f32 on both sides from the same (rounded) inputs
+    torch.testing.assert_close(fin, fr, **TOL[f32])
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    def args(B=1, S=64, H=2, P=32, N=32, dtype=torch.float32):
+        z = torch.zeros
+        return [z((B, S, H, P), dtype=dtype, device=dev),
+                z((B, S, H), device=dev), z((H,), device=dev),
+                z((B, S, N), dtype=dtype, device=dev),
+                z((B, S, N), dtype=dtype, device=dev), z((H,), device=dev)]
+
+    with pytest.raises(ValueError, match="state_dim"):
+        ssd_scan(*args(N=48), 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(*args(P=24), 32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(*args(), 48)
+    with pytest.raises(ValueError, match="empty"):
+        ssd_scan(*args(B=0), 32)
+    x, dt, a, b, c, d = args(dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="differ"):
+        ssd_scan(x, dt, a, b.float(), c, d, 32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x, dt.bfloat16(), a, b, c, d, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, b, c,
+                 d, 32)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

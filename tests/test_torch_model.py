@@ -311,6 +311,6 @@ def test_suffix_prefill_logits(model, prefix_len):
 
 
 def test_unsupported_models_raise():
-    for name in ("mamba2-370m", "mixtral-8x7b", "whisper-base"):
+    for name in ("jamba-v0.1-52b", "mixtral-8x7b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.make_caches(get_config(name).reduced(), 1, 16)

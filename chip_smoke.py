@@ -348,6 +348,7 @@ def check_ssd(torch, dev):
         ok = (torch.allclose(y.float(), yr.float(), **TOL[dtype])
               and torch.allclose(fin, fr, **SSD_STATE_TOL))
         log(f"  ssd_scan [{label}] {dtype}: y max_abs_err={err:.3e} "
+            f"(max |y_ref| {yr.float().abs().max().item():.3e}) "
             f"tol={TOL[dtype]}; state max_abs_err={serr:.3e} "
             f"tol={SSD_STATE_TOL} {'ok' if ok else 'FAIL'}")
         assert ok and torch.isfinite(y.float()).all(), (label, err, serr)

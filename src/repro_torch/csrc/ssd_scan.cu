@@ -281,9 +281,6 @@ cudaError_t dispatch_n(int N, const void* x, const void* dt, const void* a,
     case 16:
       return launch<T, 16>(x, dt, a, b, c, d, init, y, fin, cb, B, S, H, P,
                            stream);
-    case 32:
-      return launch<T, 32>(x, dt, a, b, c, d, init, y, fin, cb, B, S, H, P,
-                           stream);
     case 64:
       return launch<T, 64>(x, dt, a, b, c, d, init, y, fin, cb, B, S, H, P,
                            stream);
@@ -300,7 +297,7 @@ cudaError_t dispatch_n(int N, const void* x, const void* dt, const void* a,
 // x (B, S, H, P), dt (B, S, H) f32, a (H,) f32, b/c (B, S, N), d (H,) f32,
 // init (B, H, P, N) f32 or null, y (B, S, H, P), fin (B, H, P, N) f32,
 // cb scratch (B, ceil(S/64), 64, 64) f32; x/b/c/y share `dtype`
-// (0 f32, 1 bf16); P a multiple of 16, N in {16, 32, 64, 128}. Returns
+// (0 f32, 1 bf16); P a multiple of 16, N in {16, 64, 128}. Returns
 // the CUDA error code of the launches (0 = ok).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a,
                             const void* b, const void* c, const void* d,

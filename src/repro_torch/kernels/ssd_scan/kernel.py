@@ -19,7 +19,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 LAUNCHES = 0          # kernel launches since the last reset
 SUB = 64              # tokens per sub-chunk of the kernel
 P_BLOCK = 16          # state rows (of head_dim) per block
-STATE_DIMS = (16, 32, 64, 128)
+STATE_DIMS = (16, 64, 128)
 
 
 def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,

@@ -132,7 +132,7 @@ def test_paged_kernel_matches_plain(dev, case, dtype):
     (2, 64, 4, 32, 16, 16, False, 0),
     (1, 128, 2, 64, 128, 32, True, 0),
     (2, 96, 3, 32, 64, 32, True, 0),          # 96 = 64 + a 32-token rest
-    (1, 200, 2, 16, 32, 40, True, 30),        # dt = 0 over the last 30
+    (1, 200, 2, 16, 64, 40, True, 30),        # dt = 0 over the last 30
     (1, 256, 4, 64, 128, 256, True, 0),       # the model's chunk
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -160,7 +160,7 @@ def test_ssd_kernel_matches_plain(dev, case, dtype):
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    def args(B=1, S=64, H=2, P=32, N=32, dtype=torch.float32):
+    def args(B=1, S=64, H=2, P=32, N=16, dtype=torch.float32):
         z = torch.zeros
         return [z((B, S, H, P), dtype=dtype, device=dev),
                 z((B, S, H), device=dev), z((H,), device=dev),

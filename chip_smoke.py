@@ -10,7 +10,8 @@ Phases (every failure raises and ends the run with a non-zero code):
      a window; for ssd_scan an initial state, a padded tail and a single
      chunk), with its time, its plain version's time, a PyTorch call that
      computes the same function where one exists (a yardstick only) and
-     its bound;
+     its bound; flash is timed at the dense prefill and at the 512-token
+     chunk over a gathered prefix that most of its serving launches take;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged;
@@ -180,26 +181,39 @@ def check_kernels(torch, dev):
         err = compare("flash_attention", label, dtype, out, ref)
         if dtype == "bfloat16":
             errs.append(err)
-    q, k, v, qp, kp, win, causal = flash_case("bfloat16", **flash_cases[0][2])
-    valid = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
-             & (kp[:, None, :] <= qp[:, :, None]))
-    n_pairs = int(valid.sum().item())
-    flops = 4 * hd * nq * n_pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
-        qp.numel() + kp.numel())
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = valid[:, None]
+    def flash_timing(label, kw):
+        """Kernel, plain and SDPA times and the bound of one causal case."""
+        q, k, v, qp, kp, _, _ = flash_case("bfloat16", **kw)
+        valid = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+                 & (kp[:, None, :] <= qp[:, :, None]))
+        n_pairs = int(valid.sum().item())
+        flops = 4 * hd * nq * n_pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
+            qp.numel() + kp.numel())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = valid[:, None]
+        return dict(
+            ms=time_ms(torch, lambda: flash_attention(q, k, v, qp, kp)),
+            plain_ms=time_ms(torch, lambda: attention_ref(q, k, v, qp, kp),
+                             n=20),
+            library_ms=time_ms(torch, lambda: _sdpa(torch, qt, kt, vt,
+                                                    mask)),
+            bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
+            bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
+            else "bytes",
+            shape=f"{label}: b1 s{q.shape[1]} S{k.shape[1]} nq{nq} nkv{nkv} "
+                  f"hd{hd} bf16, {n_pairs} valid pairs")
+
+    # the dense prefill, and the chunk shape that most serving launches take
     results["flash_attention"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: flash_attention(q, k, v, qp, kp)),
-        plain_ms=time_ms(torch, lambda: attention_ref(q, k, v, qp, kp),
-                         n=20),
-        library_ms=time_ms(torch, lambda: _sdpa(torch, qt, kt, vt, mask)),
-        bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-        bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
-        else "bytes",
-        shape=f"b1 s=S={MAX_LEN} nq{nq} nkv{nkv} hd{hd} bf16, "
-              f"{n_pairs} valid pairs")
+        max_abs_err=max(errs), **flash_timing(*flash_cases[0][::2]))
+    chunk = flash_timing(*flash_cases[2][::2])
+    log(f"  flash_attention chunk: ms={chunk['ms']:.4f} "
+        f"plain_ms={chunk['plain_ms']:.4f} "
+        f"library_ms={chunk['library_ms']:.4f} "
+        f"bound_ms={chunk['bound_ms']:.4f} ({chunk['bound_by']}) at "
+        f"{chunk['shape']}")
+    results["flash_attention"]["chunk"] = chunk
 
     # -- dense decode: 4 slots of a 3072 ring buffer, ragged lengths
     def decode_case(dtype, lengths, window=None):
@@ -726,6 +740,9 @@ def main() -> int:
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms")))
+        if "chunk" in r:
+            rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

@@ -169,5 +169,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel ``name`` with ``args`` followed by ``device``'s current
     stream, raising on a non-zero CUDA error code."""
     err = load(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"{name}: a TMA tensor map did not encode "
+                           f"(CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

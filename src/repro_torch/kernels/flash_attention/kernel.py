@@ -3,7 +3,10 @@
 ``repro/kernels/flash_attention/kernel.py:flash_attention``.
 
 CPU tensors take the plain PyTorch version (``ref.attention_ref``);
-CUDA tensors launch the kernel or raise.
+CUDA tensors launch the kernel or raise. By dtype: bf16 runs the
+tensor-core kernel (wgmma on tiles that TMA loads, which needs q, k and v
+16-byte aligned), f32 the CUDA-core kernel, whose full-f32 products the
+f32 parity checks need. Head dims 32, 64 and 128 in both.
 """
 from __future__ import annotations
 

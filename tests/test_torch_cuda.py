@@ -7,6 +7,9 @@ Imports neither ``jax`` nor ``repro``, so it runs where the port runs:
 Each test skips without a CUDA device (the kernels have no CPU mode).
 Small shapes with the cases of ``tests/test_torch_kernels.py``: padded
 queries, ragged caches, windows, GQA groups 1-8, head dims 32-128; for
+flash also lengths that are no multiple of its 128-row tiles, a gathered
+prefix whose -1 gap covers whole key tiles, a query tile that is all
+padding, a window inside one tile and cross-attention with S < s; for
 the SSD scan the cases of ``tests/test_torch_ssm.py`` plus a padded tail,
 sequences that are no multiple of the kernel's 64-token sub-chunk, and
 an initial state. The serving shapes are checked by ``chip_smoke.py``.
@@ -47,30 +50,56 @@ def _randn(gen, shape, dtype, dev):
 
 
 @pytest.mark.parametrize("case", [
-    # b, s, S, nq, nkv, hd, window, causal
+    # b, s, S, nq, nkv, hd, window, causal[, extra]
     (2, 64, 64, 4, 2, 64, None, True),
     (1, 100, 100, 8, 8, 32, None, True),
     (2, 128, 128, 4, 1, 64, 32, True),
     (1, 50, 70, 4, 2, 64, None, False),
     (1, 33, 33, 2, 2, 128, 16, True),
+    # s and S no multiple of 64 or 128, at each head dim and GQA group 1/4/8
+    (1, 200, 200, 4, 4, 32, None, True),
+    (2, 300, 300, 8, 2, 64, None, True),
+    (1, 333, 333, 16, 2, 128, None, True),
+    # suffix prefill: a gathered prefix of 450 slots, 100 valid, then the
+    # 100 new keys; the -1 gap covers key tiles 1 and 2 whole
+    (2, 100, 550, 8, 2, 128, None, True, dict(pfx=(450, 100))),
+    # query rows 150.. are padding: the 128-query tile 256..299 is all
+    # padding
+    (1, 300, 300, 4, 2, 64, None, True, dict(pad_from=150)),
+    # a window smaller than one 128-key tile
+    (1, 400, 400, 8, 2, 128, 50, True),
+    # cross-attention with fewer keys than queries
+    (1, 300, 77, 8, 2, 64, None, False),
+    (2, 129, 65, 4, 4, 128, None, False),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_matches_plain(dev, case, dtype):
-    b, s, S, nq, nkv, hd, win, causal = case
+    b, s, S, nq, nkv, hd, win, causal = case[:8]
+    extra = case[8] if len(case) > 8 else {}
     gen = torch.Generator(device=dev).manual_seed(0)
     q = _randn(gen, (b, s, nq, hd), dtype, dev)
     k = _randn(gen, (b, S, nkv, hd), dtype, dev)
     v = _randn(gen, (b, S, nkv, hd), dtype, dev)
     qi = torch.arange(s, dtype=torch.int32, device=dev)
-    qp = torch.where(qi < s - 3, qi, torch.full_like(qi, -1)).repeat(b, 1)
-    kp = torch.arange(S, dtype=torch.int32, device=dev).repeat(b, 1)
+    pad_from = extra.get("pad_from", s - 3)
+    if "pfx" in extra:         # positions continue after the valid prefix
+        span, valid = extra["pfx"]
+        qp = torch.where(qi < pad_from, qi + valid, torch.full_like(qi, -1))
+        t = torch.arange(span, dtype=torch.int32, device=dev)
+        kp = torch.cat([torch.where(t < valid, t, torch.full_like(t, -1)),
+                        qi + valid]).repeat(b, 1)
+        qp = qp.repeat(b, 1)
+    else:
+        qp = torch.where(qi < pad_from, qi, torch.full_like(qi, -1)).repeat(
+            b, 1)
+        kp = torch.arange(S, dtype=torch.int32, device=dev).repeat(b, 1)
     ops.reset_launch_counts()
     out = flash_attention(q, k, v, qp, kp, window=win, causal=causal)
     assert ops.launch_counts()["flash_attention"] == 1
     torch.testing.assert_close(
         out, attention_ref(q, k, v, qp, kp, window=win, causal=causal),
         **TOL[dtype])
-    assert torch.all(out[:, -3:] == 0)         # fully masked query rows
+    assert torch.all(out[:, pad_from:] == 0)   # fully masked query rows
 
 
 @pytest.mark.parametrize("case", [
@@ -198,3 +227,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                         q, q, pos, pos)
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention(q, q.cpu(), q, pos, pos)
+    # a contiguous view one element into its storage: TMA needs 16 bytes
+    qb = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                     device=dev)[1:].view(q.shape)
+    assert qb.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(qb, q.bfloat16(), q.bfloat16(), pos, pos)

@@ -8,10 +8,12 @@ Phases (every failure raises and ends the run with a non-zero code):
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the serving path's shapes (bf16 and f32, padding, ragged lengths,
      a window; for ssd_scan an initial state, a padded tail and a single
-     chunk), with its time, its plain version's time, a PyTorch call that
-     computes the same function where one exists (a yardstick only) and
-     its bound; flash is timed at the dense prefill and at the 512-token
-     chunk over a gathered prefix that most of its serving launches take;
+     chunk), with its device time a launch on cold inputs (``ms``) and a
+     single call's time (``call_ms``, host path included), its plain
+     version's time, a PyTorch call that computes the same function
+     where one exists (a yardstick only, timed both ways) and its bound;
+     flash is timed at the dense prefill and at the 512-token chunk over
+     a gathered prefix that most of its serving launches take;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged;
@@ -38,6 +40,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,6 +73,8 @@ MAX_LEN = 3072
 IMAGE_TOKENS = 2880
 SSM_MAX_LEN = 2048      # mamba2's training context, a multiple of its chunk
 SSM_PROMPTS = (64, 256, 1000, 1900)
+L2_BYTES = 50 * 2 ** 20  # H100 L2
+DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
 # inputs: only the summation order differs, whatever the input dtype
 SSD_STATE_TOL = TOL["float32"]
@@ -79,7 +85,10 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, n: int = 25, warmup: int = 3) -> float:
-    """Median of ``n`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Median of ``n`` CUDA-event timings of ``fn`` after ``warmup`` calls:
+    one call between each pair of events, so a call shorter than its
+    host path (checks, allocations, the launch) reads that path too. Kept
+    for the plain versions and as ``call_ms`` / ``library_call_ms``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -95,14 +104,59 @@ def time_ms(torch, fn, n: int = 25, warmup: int = 3) -> float:
     return statistics.median(ts)
 
 
+def n_sets(nbytes: int) -> int:
+    """Input sets to rotate over so that, between two launches on one set,
+    the other sets move at least twice the L2: each launch then finds its
+    inputs in device memory, as a serving layer finds its cache."""
+    return 1 + -(-2 * L2_BYTES // nbytes)
+
+
+def device_ms(torch, fn, sets, n: int = DEVICE_LAUNCHES) -> float:
+    """Device time per launch of ``fn(*set)``: ``n`` launches rotating over
+    ``sets``, queued back to back between one pair of CUDA events, after
+    one warm-up launch a set. A spin kernel (``torch.cuda._sleep``) queued
+    before the first event holds the device until the host has queued all
+    ``n``, so the reading holds no host time; if the spin ended first, a
+    longer one is tried, then the timing fails."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    for s in sets:
+        fn(*s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*sets[i % len(sets)])
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    for spin_ms in (3 * host_ms + 2, 30 * host_ms + 20):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(cycles_per_ms * spin_ms))
+        a.record()
+        for i in range(n):
+            fn(*sets[i % len(sets)])
+        b.record()
+        held = not a.query()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / n
+    raise RuntimeError("device_ms: the spin ended before the host had "
+                       "queued the launches")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _sdpa(torch, q, k, v, mask):
+def sdpa(q, k, v, mask):
     """One PyTorch call computing the same attention: q (b, h, s, d),
     k/v (b, hk, S, d), boolean mask broadcastable to (b, h, s, S)."""
-    F = torch.nn.functional
+    from torch.nn import functional as F
     try:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=True)
@@ -111,6 +165,43 @@ def _sdpa(torch, q, k, v, mask):
         return F.scaled_dot_product_attention(
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
             attn_mask=mask)
+
+
+def timing(torch, first, make, kernel, plain, library, nbytes, flops,
+           shape, plain_n=25):
+    """Times of one kernel at one shape, and its bound. ``make()`` draws a
+    fresh input set: the kernel's arguments and the library call's (or
+    None); ``first`` is one already drawn. ``ms`` and ``library_ms`` are
+    device times on cold inputs (``device_ms`` over ``n_sets(nbytes)``
+    sets); ``call_ms``, ``library_call_ms`` and ``plain_ms`` time single
+    calls on the first set (``time_ms``)."""
+    sets = [first] + [make() for _ in range(n_sets(nbytes) - 1)]
+    kargs = [s[0] for s in sets]
+    r = dict(ms=device_ms(torch, kernel, kargs),
+             call_ms=time_ms(torch, lambda: kernel(*kargs[0])),
+             plain_ms=time_ms(torch, lambda: plain(*kargs[0]), n=plain_n),
+             library_ms=None, library_call_ms=None,
+             bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
+             bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
+             else "bytes", n_sets=len(sets), shape=shape)
+    if library is not None:
+        largs = [s[1] for s in sets]
+        r.update(library_ms=device_ms(torch, library, largs),
+                 library_call_ms=time_ms(torch, lambda: library(*largs[0])))
+    del sets, kargs
+    torch.cuda.empty_cache()
+    return r
+
+
+def log_timing(name, r):
+    lib = ("None" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} library_call_ms={r['library_call_ms']:.4f}")
+    log(f"  {name}: ms={r['ms']:.4f} (device, cold: {DEVICE_LAUNCHES} "
+        f"launches over {r['n_sets']} input sets) call_ms={r['call_ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound reached, at "
+        f"{r['shape']}")
 
 
 def check_kernels(torch, dev):
@@ -183,36 +274,28 @@ def check_kernels(torch, dev):
             errs.append(err)
     def flash_timing(label, kw):
         """Kernel, plain and SDPA times and the bound of one causal case."""
-        q, k, v, qp, kp, _, _ = flash_case("bfloat16", **kw)
-        valid = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
-                 & (kp[:, None, :] <= qp[:, :, None]))
+        def make():
+            q, k, v, qp, kp, _, _ = flash_case("bfloat16", **kw)
+            valid = ((kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+                     & (kp[:, None, :] <= qp[:, :, None]))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            return (q, k, v, qp, kp), (qt, kt, vt, valid[:, None])
+        first = make()
+        (q, k, v, qp, kp), (_, _, _, valid) = first
         n_pairs = int(valid.sum().item())
-        flops = 4 * hd * nq * n_pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
             qp.numel() + kp.numel())
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        mask = valid[:, None]
-        return dict(
-            ms=time_ms(torch, lambda: flash_attention(q, k, v, qp, kp)),
-            plain_ms=time_ms(torch, lambda: attention_ref(q, k, v, qp, kp),
-                             n=20),
-            library_ms=time_ms(torch, lambda: _sdpa(torch, qt, kt, vt,
-                                                    mask)),
-            bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-            bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
-            else "bytes",
-            shape=f"{label}: b1 s{q.shape[1]} S{k.shape[1]} nq{nq} nkv{nkv} "
-                  f"hd{hd} bf16, {n_pairs} valid pairs")
+        return timing(torch, first, make, flash_attention, attention_ref,
+                      sdpa, nbytes, 4 * hd * nq * n_pairs, plain_n=20,
+                      shape=f"{label}: b1 s{q.shape[1]} S{k.shape[1]} "
+                            f"nq{nq} nkv{nkv} hd{hd} bf16, {n_pairs} valid "
+                            f"pairs")
 
     # the dense prefill, and the chunk shape that most serving launches take
     results["flash_attention"] = dict(
         max_abs_err=max(errs), **flash_timing(*flash_cases[0][::2]))
     chunk = flash_timing(*flash_cases[2][::2])
-    log(f"  flash_attention chunk: ms={chunk['ms']:.4f} "
-        f"plain_ms={chunk['plain_ms']:.4f} "
-        f"library_ms={chunk['library_ms']:.4f} "
-        f"bound_ms={chunk['bound_ms']:.4f} ({chunk['bound_by']}) at "
-        f"{chunk['shape']}")
+    log_timing("flash_attention chunk", chunk)
     results["flash_attention"]["chunk"] = chunk
 
     # -- dense decode: 4 slots of a 3072 ring buffer, ragged lengths
@@ -239,24 +322,22 @@ def check_kernels(torch, dev):
                       decode_attention_ref(q, k, v, qp, kp, window=w))
         if dtype == "bfloat16":
             errs.append(err)
-    q, k, v, qp, kp, _ = decode_case("bfloat16", lens)
+    def decode_set():
+        q, k, v, qp, kp, _ = decode_case("bfloat16", lens)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        return (q, k, v, qp, kp), (q[:, :, None], kt, vt,
+                                   (kp >= 0)[:, None, None])
+    first = decode_set()
+    q, _, _, qp, kp = first[0]
     n_tok = sum(lens)
-    flops = 4 * hd * nq * n_tok
     nbytes = (2 * n_tok * nkv * hd * 2 + 2 * 2 * q.numel()
               + 4 * (kp.numel() + qp.numel()))
-    qt = q[:, :, None]
-    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-    mask = (kp >= 0)[:, None, None]
     results["decode_attention"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: decode_attention(q, k, v, qp, kp)),
-        plain_ms=time_ms(torch, lambda: decode_attention_ref(q, k, v, qp,
-                                                             kp)),
-        library_ms=time_ms(torch, lambda: _sdpa(torch, qt, kt, vt, mask)),
-        bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-        bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
-        else "bytes",
-        shape=f"b4 S{MAX_LEN} nq{nq} nkv{nkv} hd{hd} bf16, lengths {lens}")
+        **timing(torch, first, decode_set, decode_attention,
+                 decode_attention_ref, sdpa, nbytes, 4 * hd * nq * n_tok,
+                 shape=f"b4 S{MAX_LEN} nq{nq} nkv{nkv} hd{hd} bf16, "
+                       f"lengths {lens}"))
 
     # -- paged decode: page 16, 192 pages a slot, scattered pages
     page, max_pages = 16, MAX_LEN // 16
@@ -290,35 +371,29 @@ def check_kernels(torch, dev):
                       paged_decode_attention_ref(*args[:5], window=args[5]))
         if dtype == "bfloat16":
             errs.append(err)
-    q, kpool, vpool, tbl, ln, _ = paged_case("bfloat16", lens)
+    # yardstick: SDPA over the same KV laid out densely beforehand (no
+    # single PyTorch call reads a paged pool; the gather is not timed)
+    def paged_set():
+        q, kpool, vpool, tbl, ln, _ = paged_case("bfloat16", lens)
+        kd, vd = (x[tbl.long()].reshape(len(lens), -1, nkv, hd)
+                  .transpose(1, 2).contiguous() for x in (kpool, vpool))
+        t = torch.arange(kd.shape[2], device=dev)[None]
+        return (q, kpool, vpool, tbl, ln), (q[:, :, None], kd, vd,
+                                            (t < ln[:, None])[:, None, None])
+    first = paged_set()
+    q, _, _, _, ln = first[0]
     n_pg = sum(-(-n // page) for n in lens)
     nbytes = (2 * n_tok * nkv * hd * 2 + 2 * 2 * q.numel()
               + 4 * (n_pg + ln.numel()))
-    flops = 4 * hd * nq * n_tok
-    # yardstick: SDPA over the same KV laid out densely beforehand (no
-    # single PyTorch call reads a paged pool; the gather is not timed)
-    kd = kpool[tbl.long()].reshape(len(lens), -1, nkv, hd).transpose(1, 2)
-    vd = vpool[tbl.long()].reshape(len(lens), -1, nkv, hd).transpose(1, 2)
-    kd, vd = kd.contiguous(), vd.contiguous()
-    t = torch.arange(kd.shape[2], device=dev)[None]
-    mask = (t < ln[:, None])[:, None, None]
-    qt = q[:, :, None]
     results["paged_decode_attention"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: paged_decode_attention(q, kpool, vpool,
-                                                         tbl, ln)),
-        plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(
-            q, kpool, vpool, tbl, ln)),
-        library_ms=time_ms(torch, lambda: _sdpa(torch, qt, kd, vd, mask)),
-        bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-        bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
-        else "bytes",
-        shape=f"b4 page{page} max_pages{max_pages} nq{nq} nkv{nkv} hd{hd} "
-              f"bf16, lengths {lens}")
+        **timing(torch, first, paged_set, paged_decode_attention,
+                 paged_decode_attention_ref, sdpa, nbytes,
+                 4 * hd * nq * n_tok,
+                 shape=f"b4 page{page} max_pages{max_pages} nq{nq} nkv{nkv} "
+                       f"hd{hd} bf16, lengths {lens}"))
     for name, r in results.items():
-        log(f"  {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) at {r['shape']}")
+        log_timing(name, r)
     return results
 
 
@@ -369,8 +444,11 @@ def check_ssd(torch, dev):
         if dtype == "bfloat16":
             errs.append(err)
     # the serving path's call: bf16, the fresh cache's zero state as init
-    args = inputs("bfloat16")
-    x = args[0]
+    def make():
+        args = inputs("bfloat16")
+        return (*args[:6], chunk, args[6]), None
+    first = make()
+    x = first[0][0]
     # work of the kernel's own 64-token sub-chunks: C·Bᵀ and the
     # intra-chunk product over lower-triangular pairs, the inter-chunk
     # term and the state update over every (token, p, n)
@@ -380,20 +458,14 @@ def check_ssd(torch, dev):
     flops = 2 * pairs * (N + H * P) + 2 * 2 * H * S * P * N
     nbytes = (2 * 2 * x.numel() + 2 * 2 * B * S * N + 4 * B * S * H
               + 4 * 2 * H + 4 * 2 * B * H * P * N)
-    res = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(torch, lambda: ssd_scan(*args[:6], chunk, args[6])),
-        plain_ms=time_ms(torch, lambda: ssd_chunked(*args[:6], chunk,
-                                                    args[6]), n=20),
-        library_ms=None,    # no single PyTorch call computes the SSD scan
-        bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-        bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
-        else "bytes",
-        shape=f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} bf16, "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB")
-    log(f"  ssd_scan: ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-        f"library_ms=None bound_ms={res['bound_ms']:.4f} "
-        f"({res['bound_by']}) at {res['shape']}")
+    # library_ms None: no single PyTorch call computes the SSD scan
+    res = dict(max_abs_err=max(errs),
+               **timing(torch, first, make, ssd_scan, ssd_chunked, None,
+                        nbytes, flops, plain_n=20,
+                        shape=f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} bf16, "
+                              f"{flops / 1e9:.3f} GFLOP, "
+                              f"{nbytes / 1e6:.2f} MB"))
+    log_timing("ssd_scan", res)
     return res
 
 
@@ -605,6 +677,30 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     return stats
 
 
+def ptxas_summary(text):
+    """(kernel, registers, spill stores/loads) of each function that
+    ``nvcc -Xptxas -v`` compiled, names demangled where c++filt exists."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout.split("\n")
+        for r, d in zip(rows, out):
+            r[0] = d.split(">(")[0] + ">" if ">(" in d else d
+    return rows
+
+
 ALL_PHASES = ("1", "2", "3", "3b", "4", "5", "4b")
 
 
@@ -648,9 +744,8 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"[1] kernels built in {build_s:.1f} s")
     for kname, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {kname}: {line.strip()}")
+        for fn, regs, spill in ptxas_summary(text):
+            log(f"    {kname}: {fn}: {regs} registers, spill {spill}")
 
     kernels = {}
     if "2" in phases:
@@ -739,10 +834,12 @@ def main() -> int:
             launches=launches, max_abs_err=r.get("max_abs_err"),
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"), call_ms=r.get("call_ms"),
+            library_call_ms=r.get("library_call_ms")))
         if "chunk" in r:
             rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "call_ms", "library_call_ms")}
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

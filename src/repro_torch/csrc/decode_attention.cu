@@ -7,15 +7,19 @@
 // the query at q_pos (b,), an optional sliding window, and the g query
 // heads of a kv head handled together.
 //
-// What bounds it on the card: the K/V bytes it reads (each element feeds
-// only g = 4 multiply-adds per product on the serving path), so the least
-// time is those bytes over 3.35 TB/s; details in decode_common.cuh.
-// What the design does about it: the TPU kernel walked the KV blocks as
-// its sequential innermost grid axis; here the walk is split across
-// blocks (split-K flash-decode, the shape its docstring names for CUDA)
-// so the whole card streams K/V at once, the g query heads of a kv head
-// share every row read, a second pass merges the splits, and slots whose
-// kv_pos is -1 or outside the window are never read.
+// What bounds it on the card: the K/V bytes of the valid slots (each
+// element feeds only g = 4 multiply-adds per product on the serving
+// path), so the least time is those bytes over 3.35 TB/s.
+// What the design does about it (details in decode_common.cuh): the TPU
+// kernel walked the KV blocks as its sequential innermost grid axis; here
+// the walk is split across blocks so the whole card streams K/V at once,
+// each block keeping its next 64-token tiles in flight through a cp.async
+// ring in shared memory, and the last block of a (row, kv head) merges the
+// splits in the same launch. A block reads kv_pos for its split first,
+// copies only the rows of valid slots and walks only the tiles between its
+// first and last valid key, so a short row, a ring whose live slots are
+// rotated against slot order (written at cur_len % S) or a window costs
+// only the bytes of the keys the query sees.
 
 #include "decode_common.cuh"
 
@@ -28,31 +32,46 @@ struct DenseKV {
   int nkv;
   __device__ __forceinline__ int qpos_of(int bi) const { return qpos[bi]; }
   __device__ __forceinline__ int end(int bi) const { return S; }
-  __device__ __forceinline__ bool valid(int bi, int t, int qp,
-                                        int window) const {
-    const int p = kpos[(size_t)bi * S + t];
-    return p >= 0 && p <= qp && (window <= 0 || p > qp - window);
-  }
-  __device__ __forceinline__ size_t row(int bi, int t, int kvh) const {
-    return ((size_t)bi * S + t) * nkv + kvh;
+  __device__ __forceinline__ void prefetch(int, int, int, int*) const {}
+  // rows of tokens t_begin + [0, n_fill): (b, S, nkv) row index, or -1 past
+  // the split's n_tok tokens or where kv_pos says the slot is no valid key;
+  // lo and hi take the thread's first and last valid index
+  __device__ __forceinline__ void fill_rows(int bi, int kvh, int t_begin,
+                                            int n_tok, int n_fill, int qp,
+                                            int window, int* rows, int*,
+                                            bool, int& lo, int& hi) const {
+    for (int i = threadIdx.x; i < n_fill; i += blockDim.x) {
+      const int t = t_begin + i;
+      bool ok = false;
+      if (i < n_tok) {
+        const int p = kpos[(size_t)bi * S + t];
+        ok = p >= 0 && p <= qp && (window <= 0 || p > qp - window);
+      }
+      rows[i] = ok ? (bi * S + t) * nkv + kvh : -1;
+      if (ok) {
+        lo = min(lo, i);
+        hi = i;
+      }
+    }
   }
 };
 
 }  // namespace
 
 // q (b, nq, hd), k/v (b, S, nkv, hd), qpos (b,), kpos (b, S) int32,
-// out (b, nq, hd); partials as in decode_common.cuh. Returns the CUDA
-// error code of the launches (0 = ok).
+// out (b, nq, hd); nsplit splits of split_len tokens a row (a multiple of
+// 64); part and counters as in decode_common.cuh (unused for one split).
+// Returns the CUDA error code of the launch (0 = ok).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* qpos,
-                                    const void* kpos, void* out, void* m_part,
-                                    void* l_part, void* acc_part, int b,
-                                    int S, int nq, int nkv, int hd, int dtype,
-                                    int window, int split_len, int nsplit,
-                                    float scale, void* stream) {
+                                    const void* kpos, void* out, void* part,
+                                    void* counters, int b, int S, int nq,
+                                    int nkv, int hd, int dtype, int window,
+                                    int split_len, int nsplit, float scale,
+                                    void* stream) {
   DenseKV kv{static_cast<const int*>(qpos), static_cast<const int*>(kpos), S,
              nkv};
-  return rt::decode_dispatch(dtype, hd, q, k, v, kv, out, m_part, l_part,
-                             acc_part, b, nq, nkv, nsplit, split_len, window,
-                             scale, static_cast<cudaStream_t>(stream));
+  return rt::decode_dispatch(dtype, hd, q, k, v, kv, out, part, counters, b,
+                             nq, nkv, nsplit, split_len, window, scale,
+                             static_cast<cudaStream_t>(stream));
 }

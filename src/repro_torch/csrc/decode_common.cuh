@@ -2,38 +2,67 @@
 //
 // One query token per batch row attends over its KV. The device code is
 // one template over a KV source: the dense ring-buffer cache (kv_pos marks
-// empty slots) or the paged pool read through the block table. The source
-// maps token t of row b to a (token, kv head) row of K/V and says whether
-// it is a valid key for the query.
+// empty slots) or the paged pool read through the block table. For one
+// split of a row, the source fills a table in shared memory with the K/V
+// row of each token, or -1 where the token is no valid key for the query.
 //
 // What bounds it on the card: bytes. Each K/V element read is used for
 // g multiply-adds per product (g = q heads per kv head, 4 on the serving
 // path), far below the ~295 flops a byte at which the H100 stops being
-// memory-bound, so the least time is the K/V bytes over 3.35 TB/s.
+// memory-bound, so the least time is the K/V bytes over 3.35 TB/s. The
+// card reaches that rate only with megabytes in flight at once (tens of
+// KB on every SM) and with the math of a tile hidden behind the loads of
+// the next ones.
 //
 // What the design does about it:
-// * Pass 1 (decode_partial_kernel): one block per (batch, kv head, split of
-//   `split_len` tokens), so a batch of 4 x 8 kv heads still puts hundreds of
-//   blocks on the 132 SMs. The g query heads of a kv head are handled
-//   together: each K/V row is read once from memory for all of them. A
-//   warp takes DEC_U tokens at a time with the 32 lanes across hd (one
-//   vector load per lane), so several rows are in flight per warp; invalid
-//   tokens (empty ring slots, keys past the window, pages past the slot's
-//   length) are never read. Each warp keeps an online softmax in
-//   registers; the warps of a block merge in shared memory and write one
-//   partial (max, sum, accumulator) per split.
-// * Pass 2 (decode_combine_kernel): per (batch, kv head), merges the
-//   splits' partials with the usual max-rescaling and divides by the sum
-//   (a sum of 0, no valid key at all, gives 0 as the TPU kernel does).
+// * One block of 256 threads per (batch row, kv head, split of
+//   `split_len` tokens); the wrapper sizes the splits from shapes alone
+//   so that the grid puts about two blocks on every SM. The g q heads of
+//   a kv head share every K/V row read. A split first builds a table of
+//   its tokens' K/V rows in shared memory (-1 for a token that is no valid
+//   key: an empty ring slot, a key outside the window, past the slot's
+//   length) and walks only the 64-token tiles from its first to its last
+//   valid key, through a DEC_STAGES-deep ring filled by cp.async 16-byte
+//   copies: all stages are in flight before the first tile's math starts,
+//   and a stage is refilled as soon as its tile is consumed. Invalid
+//   tokens are zero-filled without a load. Rows are padded by 16 bytes in
+//   shared memory, so the column reads below hit distinct banks.
+// * bf16: Q.K^T and P.V on the tensor cores with mma.sync, the q heads
+//   on M (padded to 16), 8 tokens a warp: S = Q K^T (m16n8k16, K rows by
+//   ldmatrix), each warp's own online softmax over the 4 lanes of a row,
+//   then O += P V (m16n8k8, P straight from S's registers, rounded to bf16
+//   as the TPU kernel rounds p, V by ldmatrix.trans). No block barrier
+//   between a tile's two products; the warps' (m, l, O) merge once at
+//   the end.
+// * f32 (no tensor-core path at this precision): CUDA cores, threads
+//   across tokens for Q.K^T (four threads a token, each a quarter of hd
+//   inside the thread against q in shared memory), one warp per q head for
+//   the softmax, rescaled once a tile, threads across hd for P.V.
+// * The group size is a template parameter G in {1, 2, 4, 8} (a g below G
+//   runs as G with the extra heads idle), so g = 4 carries 4-wide arrays.
+// * Partials are sized to G and to the splits of the launch: a split with
+//   no valid key writes only m = -1e30 and l = 0, no accumulator. The last
+//   block of a (row, kv head) to finish, found with a counter that it
+//   resets for the next launch, merges the splits' partials in the same
+//   launch, eight splits' loads in flight at once. A launch of one split
+//   writes its output directly. A row with no valid key gives 0, as the
+//   TPU kernel does (l == 0 -> 1).
 #pragma once
+
+#include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace rt {
 
-constexpr int DEC_WARPS = 4;
-constexpr int DEC_U = 4;      // tokens per warp per step
-constexpr int MAXG = 8;       // largest q-heads-per-kv-head group handled
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_TILE = 64;       // tokens per ring stage
+constexpr int DEC_PARTS = DEC_THREADS / DEC_TILE;   // hd parts of Q.K^T
+constexpr int DEC_STAGES = 2;      // ring depth: tiles in flight
+constexpr int DEC_SEG = 1024;      // tokens a row table covers
+constexpr float DEC_LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -41,181 +70,611 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// partials: m/l (b, nkv, nsplit, MAXG), acc (b, nkv, nsplit, MAXG, HD), f32
-template <typename T, int HD, class KV>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                      const T* __restrict__ vc, KV kv,
-                      float* __restrict__ m_part, float* __restrict__ l_part,
-                      float* __restrict__ acc_part, int nq, int nkv,
-                      int nsplit, int split_len, int window, float scale) {
-  constexpr int EPL = HD / 32;               // elements of hd per lane
-  __shared__ float s_m[DEC_WARPS][MAXG];
-  __shared__ float s_l[DEC_WARPS][MAXG];
-  __shared__ float s_acc[DEC_WARPS][MAXG][HD];
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled without a read when
+// `pred` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* d, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* d, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (16x8, f32) += a (16x8, bf16, row) * b (8x8, bf16, col)
+__device__ __forceinline__ void mma_1688(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// one 16-byte chunk of a K/V row, widened to float
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
+// Shared-memory layout of one block (dynamic), in this order: the K/V
+// ring, q (G x HD, f32, pre-scaled), the score sums of the hd parts
+// (DEC_PARTS x G x TILE), the probabilities (TILE x G), alpha (8), final m
+// and l (16), the row table of a segment (DEC_SEG ints) and the source's
+// own table (DEC_SEG + 2). The ring, once drained, holds the per-warp sums.
+template <typename T, int HD, int G>
+struct DecLayout {
+  static constexpr int C = HD * (int)sizeof(T) / 16;  // chunks in a row
+  static constexpr int RS = C + 1;                     // padded row stride
+  static constexpr int TILE_CH = DEC_TILE * RS;        // chunks a K/V tile
+  static constexpr size_t RING = (size_t)DEC_STAGES * 2 * TILE_CH * 16;
+  static constexpr size_t BYTES =
+      RING + 4 * ((size_t)G * HD + DEC_PARTS * G * DEC_TILE + DEC_TILE * G +
+                  8 + 16 + 2 * DEC_SEG + 2);
+  static_assert(4 * DEC_WARPS * G * HD <= RING, "warp sums fit the ring");
+};
+
+// One block per (split, kv head, batch row). Partials, f32, one buffer:
+// acc (rows, nsplit, G, HD) then m and l (rows, nsplit, 2, G), rows = b *
+// nkv; counters (rows,) int32, 0 between launches.
+template <typename T, int HD, int G, class KV>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, KV kv, T* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ counters,
+                    int nq, int g, int split_len, int window, float qscale) {
+  using L = DecLayout<T, HD, G>;
+  constexpr int C = L::C, RS = L::RS, TILE_CH = L::TILE_CH;
+  constexpr int EPC = Chunk<T>::N;          // elements a chunk
+  constexpr int NTG = DEC_THREADS / C;      // token groups of P.V
+  constexpr int TPT = DEC_TILE / NTG;       // tokens a thread a tile, P.V
+  constexpr int HD4 = HD / 4;
+  constexpr int CP = C / DEC_PARTS;         // chunks a thread, Q.K^T
+  static_assert(C % DEC_PARTS == 0 && C <= 32, "row chunks");
+  // bf16 runs Q.K^T and P.V on the tensor cores, 8 tokens a warp
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(!kMma || DEC_TILE == 8 * DEC_WARPS, "8 tokens a warp");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);
+  float* s_q = reinterpret_cast<float*>(smem + L::RING);
+  float* s_s = s_q + G * HD;               // [DEC_PARTS][G][TILE]
+  float* s_p = s_s + DEC_PARTS * G * DEC_TILE;   // [TILE][G]
+  float* s_alpha = s_p + DEC_TILE * G;     // [G]
+  float* s_ml = s_alpha + 8;               // m [G], l [G]
+  int* s_row = reinterpret_cast<int*>(s_ml + 16);
+  int* s_aux = s_row + DEC_SEG;
+  __shared__ int s_lohi[2][DEC_WARPS];
+  __shared__ int s_last;
 
   const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
-  const int g = nq / nkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qp = kv.qpos_of(bi);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t_begin = split * split_len;
-  const int t_end = min(t_begin + split_len, kv.end(bi));
+  // tokens of this split; none past a paged slot's length (no load then)
+  const int n_tok = max(0, min(split_len, kv.end(bi) - t_begin));
+  const int qp = kv.qpos_of(bi);
+  // the first segment's table entries (paged: its pages), in flight with
+  // the row's length
+  kv.prefetch(bi, t_begin, min(split_len, DEC_SEG), s_aux);
 
-  float qf[MAXG][EPL], m[MAXG], l[MAXG], acc[MAXG][EPL];
+  // q: bf16 as mma A fragments (row = q head, padded to 16), f32 in s_q
+  constexpr int KS = HD / 16;                // k-steps of Q.K^T (mma)
+  uint32_t qa[KS][2];
+  const int r = lane >> 2, cq = lane & 3;    // mma fragment row and column
+  if (n_tok > 0) {
+    if constexpr (kMma) {
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+          q + ((size_t)bi * nq + kvh * g + r) * HD);
 #pragma unroll
-  for (int gi = 0; gi < MAXG; ++gi) {
-    m[gi] = NEG_INF;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      qf[gi][e] = 0.f;
-      acc[gi][e] = 0.f;
-    }
-    if (gi < g)
-      load_vec<T, EPL>(q + ((size_t)bi * nq + kvh * g + gi) * HD + lane * EPL,
-                       qf[gi]);
-  }
-
-  for (int t0 = t_begin + warp * DEC_U; t0 < t_end;
-       t0 += DEC_WARPS * DEC_U) {
-    bool ok[DEC_U];
-    size_t row[DEC_U];
-    float kf[DEC_U][EPL], vf[DEC_U][EPL];
-#pragma unroll
-    for (int u = 0; u < DEC_U; ++u) {
-      const int t = t0 + u;
-      ok[u] = t < t_end && kv.valid(bi, t, qp, window);   // warp-uniform
-      row[u] = ok[u] ? kv.row(bi, t, kvh) * HD + lane * EPL : 0;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
-      if (ok[u]) {
-        load_vec<T, EPL>(kc + row[u], kf[u]);
-        load_vec<T, EPL>(vc + row[u], vf[u]);
+      for (int ks = 0; ks < KS; ++ks) {
+        qa[ks][0] = r < g ? qrow[ks * 8 + cq] : 0u;
+        qa[ks][1] = r < g ? qrow[ks * 8 + 4 + cq] : 0u;
       }
-    }
-#pragma unroll
-    for (int u = 0; u < DEC_U; ++u) {
-      if (!ok[u]) continue;
-#pragma unroll
-      for (int gi = 0; gi < MAXG; ++gi) {
-        if (gi >= g) break;
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part = fmaf(qf[gi][e], kf[u][e], part);
-        const float sc = warp_sum(part) * scale;
-        const float mnew = fmaxf(m[gi], sc);
-        const float alpha = expf(m[gi] - mnew);
-        const float p = expf(sc - mnew);
-        l[gi] = l[gi] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e] * alpha);
-        m[gi] = mnew;
-      }
+    } else {
+      for (int i = tid; i < G * HD; i += DEC_THREADS)
+        s_q[i] = i / HD < g ? Cvt<T>::to_f(
+                                  q[((size_t)bi * nq + kvh * g) * HD + i]) *
+                                  qscale
+                            : 0.f;
     }
   }
 
+  // running softmax: mma path, per warp and q head row r (its 8 tokens
+  // of every tile); CUDA-core path, per q head in the warp that owns it
+  constexpr int GW = (G + DEC_WARPS - 1) / DEC_WARPS;
+  float m_run[GW], l_run[GW];
 #pragma unroll
-  for (int gi = 0; gi < MAXG; ++gi) {
-    if (gi >= g) break;
+  for (int k = 0; k < GW; ++k) {
+    m_run[k] = NEG_INF;
+    l_run[k] = 0.f;
+  }
+  float acc[G][EPC];                       // CUDA-core P.V
+  float oacc[HD / 8][2];                   // mma P.V: row r, 2 columns a tile
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) acc[gi][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) oacc[n][0] = oacc[n][1] = 0.f;
+
+  // the split in segments of DEC_SEG tokens (one for the serving shapes)
+  bool any = false;
+  for (int seg = 0; seg < n_tok; seg += DEC_SEG) {
+    const int n_seg = min(DEC_SEG, n_tok - seg);
+    // the row table, and the tiles from the first to the last valid key
+    int lo = INT_MAX, hi = -1;
+    __syncthreads();              // the last segment's tables are read
+    kv.fill_rows(bi, kvh, t_begin + seg, n_seg,
+                 (n_seg + DEC_TILE - 1) / DEC_TILE * DEC_TILE, qp, window,
+                 s_row, s_aux, seg == 0, lo, hi);
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
     if (lane == 0) {
-      s_m[warp][gi] = m[gi];
-      s_l[warp][gi] = l[gi];
+      s_lohi[0][warp] = lo;
+      s_lohi[1][warp] = hi;
     }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) s_acc[warp][gi][lane * EPL + e] = acc[gi][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < g * HD; idx += blockDim.x) {
-    const int gi = idx / HD, d = idx % HD;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_m[w][gi]);
-    float L = 0.f, A = 0.f;
+    __syncthreads();
 #pragma unroll
     for (int w = 0; w < DEC_WARPS; ++w) {
-      const float c = expf(s_m[w][gi] - M);
-      L = fmaf(s_l[w][gi], c, L);
-      A = fmaf(s_acc[w][gi][d], c, A);
+      lo = min(lo, s_lohi[0][w]);
+      hi = max(hi, s_lohi[1][w]);
     }
-    const size_t base = ((size_t)(bi * nkv + kvh) * nsplit + split) * MAXG + gi;
-    if (d == 0) {
-      m_part[base] = M;
-      l_part[base] = L;
+    if (hi < 0) continue;         // no valid key in the segment
+    any = true;
+    const int tile0 = lo / DEC_TILE;
+    const int n_tiles = hi / DEC_TILE - tile0 + 1;
+
+    auto issue = [&](int it) {
+      uint4* kd = ring + (it % DEC_STAGES) * 2 * TILE_CH;
+      uint4* vd = kd + TILE_CH;
+      const int* rows = s_row + (tile0 + it) * DEC_TILE;
+#pragma unroll
+      for (int j = 0; j < DEC_TILE * C / DEC_THREADS; ++j) {
+        const int c = tid + j * DEC_THREADS;
+        const int tok = c / C, col = c % C;
+        const int rw = rows[tok];
+        const size_t off = (size_t)max(rw, 0) * HD + col * EPC;
+        cp_async16(kd + tok * RS + col, kc + off, rw >= 0);
+        cp_async16(vd + tok * RS + col, vc + off, rw >= 0);
+      }
+    };
+#pragma unroll
+    for (int st = 0; st < DEC_STAGES; ++st) {
+      if (st < n_tiles) issue(st);
+      cp_async_commit();
     }
-    acc_part[base * HD + d] = A;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      cp_async_wait<DEC_STAGES - 1>();
+      __syncthreads();            // tile `it` landed
+      const uint4* kt = ring + (it % DEC_STAGES) * 2 * TILE_CH;
+      const uint4* vt = kt + TILE_CH;
+      const int* rows = s_row + (tile0 + it) * DEC_TILE;
+
+      if constexpr (kMma) {
+        // warp w: tokens 8w..8w+7 of the tile. S (16 x 8) = Q K^T with
+        // m16n8k16 (K rows by ldmatrix), the online softmax of row r over
+        // the lanes of a row, then O += P V with m16n8k8 (P from S's
+        // registers, V by ldmatrix.trans).
+        const int tw = warp * 8;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < KS; ks += 2) {
+          uint32_t kb[4];
+          ldsm_x4(kb, kt + (tw + (lane & 7)) * RS + 2 * ks + (lane >> 3));
+          const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+          mma_16816(s, a0, kb);
+          if (ks + 1 < KS) {
+            const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
+            mma_16816(s, a1, kb + 2);
+          }
+        }
+        const bool ok0 = rows[tw + 2 * cq] >= 0;
+        const bool ok1 = rows[tw + 2 * cq + 1] >= 0;
+        const float s0 = ok0 ? s[0] * qscale : NEG_INF;
+        const float s1 = ok1 ? s[1] * qscale : NEG_INF;
+        float mt = fmaxf(s0, s1);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mn = fmaxf(m_run[0], mt);
+        const float alpha = exp2f(m_run[0] - mn);
+        const float p0 = ok0 ? exp2f(s0 - mn) : 0.f;
+        const float p1 = ok1 ? exp2f(s1 - mn) : 0.f;
+        float ps = p0 + p1;
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l_run[0] = l_run[0] * alpha + ps;
+        m_run[0] = mn;
+        const uint32_t pa = pack_bf16(p0, p1);
+#pragma unroll
+        for (int n4 = 0; n4 < HD / 32; ++n4) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vt + (tw + (lane & 7)) * RS + 4 * n4 + (lane >> 3));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float* d = oacc[4 * n4 + j];
+            float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
+            mma_1688(c, pa, 0u, vb[j]);
+            d[0] = c[0];
+            d[1] = c[1];
+          }
+        }
+      } else {
+        {   // Q.K^T: token tid % 64, part tid / 64 of hd
+          const int t = tid & (DEC_TILE - 1), h = tid / DEC_TILE;
+          float dot[G][2];          // two chains a head
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) dot[gi][0] = dot[gi][1] = 0.f;
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const int col = h * CP + j;
+            float kf[EPC];
+            Chunk<T>::unpack(kt[t * RS + col], kf);
+#pragma unroll
+            for (int gi = 0; gi < G; ++gi) {
+              const float4* qv =
+                  reinterpret_cast<const float4*>(s_q + gi * HD + col * EPC);
+#pragma unroll
+              for (int e4 = 0; e4 < EPC / 4; ++e4) {
+                const float4 x = qv[e4];
+                dot[gi][0] = fmaf(x.x, kf[4 * e4], dot[gi][0]);
+                dot[gi][1] = fmaf(x.y, kf[4 * e4 + 1], dot[gi][1]);
+                dot[gi][0] = fmaf(x.z, kf[4 * e4 + 2], dot[gi][0]);
+                dot[gi][1] = fmaf(x.w, kf[4 * e4 + 3], dot[gi][1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi)
+            s_s[(h * G + gi) * DEC_TILE + t] = dot[gi][0] + dot[gi][1];
+        }
+        __syncthreads();
+
+        // softmax: warp w owns q heads w, w + DEC_WARPS
+#pragma unroll
+        for (int k = 0; k < GW; ++k) {
+          const int gi = warp + DEC_WARPS * k;
+          if (gi < G) {
+            float sc[2];
+            bool ok[2];
+            float mt = NEG_INF;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int t = lane + 32 * u;
+              ok[u] = rows[t] >= 0;
+              float x = 0.f;
+#pragma unroll
+              for (int h = 0; h < DEC_PARTS; ++h)
+                x += s_s[(h * G + gi) * DEC_TILE + t];
+              sc[u] = ok[u] ? x : NEG_INF;
+              mt = fmaxf(mt, sc[u]);
+            }
+            const float mn = fmaxf(m_run[k], warp_max(mt));
+            const float alpha = exp2f(m_run[k] - mn);
+            float ps = 0.f;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float p = ok[u] ? exp2f(sc[u] - mn) : 0.f;
+              s_p[(lane + 32 * u) * G + gi] = p;
+              ps += p;
+            }
+            l_run[k] = l_run[k] * alpha + warp_sum(ps);
+            m_run[k] = mn;
+            if (lane == 0) s_alpha[gi] = alpha;
+          }
+        }
+        __syncthreads();
+
+        {   // P.V: chunk tid % C of hd, tokens tid / C + i * NTG
+          const int c = tid % C, tg = tid / C;
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            const float a = s_alpha[gi];
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) acc[gi][e] *= a;
+          }
+#pragma unroll
+          for (int i = 0; i < TPT; ++i) {
+            const int t = tg + i * NTG;
+            float vf[EPC], p[G];
+            Chunk<T>::unpack(vt[t * RS + c], vf);
+#pragma unroll
+            for (int gi = 0; gi < G; ++gi) p[gi] = s_p[t * G + gi];
+#pragma unroll
+            for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+              for (int e = 0; e < EPC; ++e)
+                acc[gi][e] = fmaf(p[gi], vf[e], acc[gi][e]);
+          }
+        }
+      }
+      __syncthreads();            // every thread is done with tile `it`
+      if (it + DEC_STAGES < n_tiles) issue(it + DEC_STAGES);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+  }
+
+  float4* red = reinterpret_cast<float4*>(smem);   // [WARPS][G][HD4], ring
+  if (any) {
+    // the block's (m, l) per q head, and its accumulator as a sum over the
+    // warps in shared memory (on the ring, now free)
+    if constexpr (kMma) {
+      // each warp ran its own softmax: rescale to the block's max first
+      float* s_wm = s_s;                    // [WARPS][G] m, then l
+      if (cq == 0 && r < G) {
+        s_wm[warp * G + r] = m_run[0];
+        s_wm[(DEC_WARPS + warp) * G + r] = l_run[0];
+      }
+      __syncthreads();
+      if (r < G) {
+        float M = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_wm[w * G + r]);
+        const float sc = exp2f(m_run[0] - M);
+        float* dst =
+            reinterpret_cast<float*>(red) + (warp * G + r) * HD + 2 * cq;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          dst[8 * n] = oacc[n][0] * sc;
+          dst[8 * n + 1] = oacc[n][1] * sc;
+        }
+      }
+      if (tid < G) {
+        float M = NEG_INF, Lsum = 0.f;
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_wm[w * G + tid]);
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w)
+          Lsum += s_wm[(DEC_WARPS + w) * G + tid] *
+                  exp2f(s_wm[w * G + tid] - M);
+        s_ml[tid] = M;
+        s_ml[G + tid] = Lsum;
+      }
+    } else {
+      // token groups of one chunk inside a warp by shuffles, then warps
+#pragma unroll
+      for (int k = 0; k < GW; ++k) {
+        const int gi = warp + DEC_WARPS * k;
+        if (gi < G && lane == 0) {
+          s_ml[gi] = m_run[k];
+          s_ml[G + gi] = l_run[k];
+        }
+      }
+#pragma unroll
+      for (int o = C; o < 32; o <<= 1)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int e = 0; e < EPC; ++e)
+            acc[gi][e] += __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
+      if (lane < C) {
+        float* dst = reinterpret_cast<float*>(red) + warp * G * HD + lane * EPC;
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) dst[gi * HD + e] = acc[gi][e];
+      }
+    }
+  } else if (tid < G) {
+    s_ml[tid] = NEG_INF;
+    s_ml[G + tid] = 0.f;
+  }
+  __syncthreads();
+
+  // the block's accumulator: the sum of its warps' (one split only: the
+  // output); else its partial, and the last block of the (row, kv head)
+  // to arrive merges every split's
+  const int nsplit = gridDim.x, rowkv = bi * gridDim.y + kvh;
+  const size_t rec = (size_t)rowkv * nsplit + split;
+  float4* acc_part = reinterpret_cast<float4*>(part);
+  float* ml_part = part + (size_t)gridDim.z * gridDim.y * nsplit * G * HD;
+  auto store = [&](int i, float4 a, float l) {   // i: (q head, 4 of hd)
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    T* p = out + ((size_t)bi * nq + kvh * g) * HD + 4 * i;
+    p[0] = Cvt<T>::from_f(a.x * inv);
+    p[1] = Cvt<T>::from_f(a.y * inv);
+    p[2] = Cvt<T>::from_f(a.z * inv);
+    p[3] = Cvt<T>::from_f(a.w * inv);
+  };
+  for (int i = tid; i < G * HD4; i += DEC_THREADS) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (any) {
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) {
+        const float4 x = red[w * G * HD4 + i];
+        a.x += x.x;
+        a.y += x.y;
+        a.z += x.z;
+        a.w += x.w;
+      }
+    }
+    if (nsplit == 1) {
+      if (i < g * HD4) store(i, a, s_ml[G + i / HD4]);
+    } else if (any) {             // a split with no valid key writes no acc
+      acc_part[rec * G * HD4 + i] = a;
+    }
+  }
+  if (nsplit == 1) return;
+  if (tid < 2 * G) ml_part[rec * 2 * G + tid] = s_ml[tid];
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = atomicAdd(counters + rowkv, 1);
+    s_last = prev == nsplit - 1;
+    if (s_last) counters[rowkv] = 0;       // ready for the next launch
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the merge, MB splits' loads in flight at once; l == 0 marks a split
+  // with no valid key, and a row with none at all gives 0
+  constexpr int MB = 8;
+  const float4* ap = acc_part + (size_t)rowkv * nsplit * G * HD4;
+  const float* mp = ml_part + (size_t)rowkv * nsplit * 2 * G;
+  for (int i = tid; i < g * HD4; i += DEC_THREADS) {
+    const int gi = i / HD4;
+    float M = NEG_INF, Lsum = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < nsplit; s0 += MB) {
+      float ms[MB], ls[MB];
+      float4 x[MB];
+#pragma unroll
+      for (int j = 0; j < MB; ++j) {
+        const int sp = min(s0 + j, nsplit - 1);
+        ms[j] = __ldcg(mp + sp * 2 * G + gi);
+        ls[j] = s0 + j < nsplit ? __ldcg(mp + sp * 2 * G + G + gi) : 0.f;
+        x[j] = __ldcg(ap + (size_t)sp * G * HD4 + i);
+      }
+#pragma unroll
+      for (int j = 0; j < MB; ++j) {
+        if (ls[j] > 0.f) {
+          const float mn = fmaxf(M, ms[j]);
+          const float ca = exp2f(M - mn), cb = exp2f(ms[j] - mn);
+          Lsum = Lsum * ca + ls[j] * cb;
+          A.x = A.x * ca + x[j].x * cb;
+          A.y = A.y * ca + x[j].y * cb;
+          A.z = A.z * ca + x[j].z * cb;
+          A.w = A.w * ca + x[j].w * cb;
+          M = mn;
+        }
+      }
+    }
+    store(i, A, Lsum);
   }
 }
 
-// out (b, nq, HD) in T; one block of HD threads per (kv head, batch row)
-template <typename T, int HD>
-__global__ void decode_combine_kernel(const float* __restrict__ m_part,
-                                      const float* __restrict__ l_part,
-                                      const float* __restrict__ acc_part,
-                                      T* __restrict__ out, int nq, int nkv,
-                                      int nsplit) {
-  const int kvh = blockIdx.x, bi = blockIdx.y, d = threadIdx.x;
-  const int g = nq / nkv;
-  for (int gi = 0; gi < g; ++gi) {
-    const size_t base = (size_t)(bi * nkv + kvh) * nsplit * MAXG + gi;
-    float M = NEG_INF;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, m_part[base + (size_t)s * MAXG]);
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t i = base + (size_t)s * MAXG;
-      const float c = expf(m_part[i] - M);
-      L = fmaf(l_part[i], c, L);
-      A = fmaf(acc_part[i * HD + d], c, A);
-    }
-    out[((size_t)bi * nq + kvh * g + gi) * HD + d] =
-        Cvt<T>::from_f(A / (L == 0.f ? 1.f : L));
-  }
-}
-
-template <typename T, int HD, class KV>
+template <typename T, int HD, int G, class KV>
 int decode_launch(const void* q, const void* k, const void* v, const KV& kv,
-                  void* out, void* m_part, void* l_part, void* acc_part,
-                  int b, int nq, int nkv, int nsplit, int split_len,
-                  int window, float scale, cudaStream_t st) {
-  dim3 g1(nsplit, nkv, b);
-  decode_partial_kernel<T, HD, KV><<<g1, DEC_WARPS * 32, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv, static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part), nq, nkv,
-      nsplit, split_len, window, scale);
-  cudaError_t e = cudaGetLastError();
+                  void* out, void* part, void* counters, int b, int nq,
+                  int nkv, int nsplit, int split_len, int window,
+                  float scale, cudaStream_t st) {
+  auto kern = decode_split_kernel<T, HD, G, KV>;
+  const size_t smem = DecLayout<T, HD, G>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 g2(nkv, b);
-  decode_combine_kernel<T, HD><<<g2, HD, 0, st>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<T*>(out), nq, nkv,
-      nsplit);
+  kern<<<dim3(nsplit, nkv, b), DEC_THREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv, static_cast<T*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), nq, nq / nkv,
+      split_len, window, scale * DEC_LOG2E);
   return (int)cudaGetLastError();
 }
 
+// g = nq / nkv runs on the smallest G in {1, 2, 4, 8} that holds it.
 template <class KV>
 int decode_dispatch(int dtype, int hd, const void* q, const void* k,
-                    const void* v, const KV& kv, void* out, void* m_part,
-                    void* l_part, void* acc_part, int b, int nq, int nkv,
-                    int nsplit, int split_len, int window, float scale,
+                    const void* v, const KV& kv, void* out, void* part,
+                    void* counters, int b, int nq, int nkv, int nsplit,
+                    int split_len, int window, float scale,
                     cudaStream_t st) {
-#define REPRO_DECODE_CASE(TT, HH)                                            \
-  return decode_launch<TT, HH, KV>(q, k, v, kv, out, m_part, l_part,         \
-                                   acc_part, b, nq, nkv, nsplit, split_len,  \
-                                   window, scale, st)
+  if (nsplit < 1 || split_len % DEC_TILE) return (int)cudaErrorInvalidValue;
+  const int g = nq / nkv;
+  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 0;
+#define REPRO_DECODE_CASE(TT, HH, GG)                                       \
+  if (G == GG)                                                              \
+    return decode_launch<TT, HH, GG, KV>(q, k, v, kv, out, part, counters,  \
+                                         b, nq, nkv, nsplit, split_len,     \
+                                         window, scale, st)
+#define REPRO_DECODE_HD(TT, HH)                                             \
+  case HH: {                                                                \
+    REPRO_DECODE_CASE(TT, HH, 1);                                           \
+    REPRO_DECODE_CASE(TT, HH, 2);                                           \
+    REPRO_DECODE_CASE(TT, HH, 4);                                           \
+    REPRO_DECODE_CASE(TT, HH, 8);                                           \
+    break;                                                                  \
+  }
   if (dtype == DTYPE_F32) {
     switch (hd) {
-      case 32: REPRO_DECODE_CASE(float, 32);
-      case 64: REPRO_DECODE_CASE(float, 64);
-      case 128: REPRO_DECODE_CASE(float, 128);
+      REPRO_DECODE_HD(float, 32)
+      REPRO_DECODE_HD(float, 64)
+      REPRO_DECODE_HD(float, 128)
     }
   } else if (dtype == DTYPE_BF16) {
     switch (hd) {
-      case 32: REPRO_DECODE_CASE(__nv_bfloat16, 32);
-      case 64: REPRO_DECODE_CASE(__nv_bfloat16, 64);
-      case 128: REPRO_DECODE_CASE(__nv_bfloat16, 128);
+      REPRO_DECODE_HD(__nv_bfloat16, 32)
+      REPRO_DECODE_HD(__nv_bfloat16, 64)
+      REPRO_DECODE_HD(__nv_bfloat16, 128)
     }
   }
+#undef REPRO_DECODE_HD
 #undef REPRO_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -10,12 +10,15 @@
 //
 // What bounds it on the card: the K/V bytes of the slots' real tokens
 // (g = 4 multiply-adds per element read on the serving path), over
-// 3.35 TB/s; details in decode_common.cuh, whose split-K device code this
-// kernel shares with the dense one. What the design does about it: the
-// kernel reads the block table itself (the TPU kernel took it by scalar
-// prefetch) and stops at the slot's length: splits past a slot's last
-// token load nothing, so memory traffic follows each slot's actual
-// length, not the table's width.
+// 3.35 TB/s. What the design does about it (details in
+// decode_common.cuh, whose device code this kernel shares with the dense
+// one): the reads are a gather, page by page, so each block first takes
+// the physical pages of its split from the block table (once a page; the
+// TPU kernel took the table by scalar prefetch) and then streams the
+// pages' K/V rows through the same cp.async ring. A split past a slot's
+// last token reads no table entry and no K/V row (it only reports an
+// empty partial), so memory traffic follows each slot's length, not the
+// table's width.
 
 #include "decode_common.cuh"
 
@@ -31,30 +34,57 @@ struct PagedKV {
   __device__ __forceinline__ int end(int bi) const {
     return min(lens[bi], max_pages * page);
   }
-  __device__ __forceinline__ bool valid(int bi, int t, int qp,
-                                        int window) const {
-    return window <= 0 || t > qp - window;     // t < length by end()
+  // the physical pages of tokens t_begin + [0, span), clipped to the
+  // table; read before the slot's length is known
+  __device__ __forceinline__ void prefetch(int bi, int t_begin, int span,
+                                           int* pages) const {
+    const int p0 = t_begin / page;
+    const int np = min((t_begin + span - 1) / page, max_pages - 1) - p0 + 1;
+    for (int i = threadIdx.x; i < np; i += blockDim.x)
+      pages[i] = tbl[(size_t)bi * max_pages + p0 + i];
   }
-  __device__ __forceinline__ size_t row(int bi, int t, int kvh) const {
-    const int phys = tbl[(size_t)bi * max_pages + t / page];
-    return ((size_t)phys * page + t % page) * nkv + kvh;
+  // rows of tokens t_begin + [0, n_fill): (P, page, nkv) row index, or -1
+  // past the split's n_tok tokens or before the window, through the pages
+  // in `pages` (read once a page, here unless `fetched`); lo and hi take
+  // the thread's first and last valid index
+  __device__ __forceinline__ void fill_rows(int bi, int kvh, int t_begin,
+                                            int n_tok, int n_fill, int qp,
+                                            int window, int* rows,
+                                            int* pages, bool fetched,
+                                            int& lo, int& hi) const {
+    const int p0 = t_begin / page;
+    if (!fetched) {
+      prefetch(bi, t_begin, n_tok, pages);
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < n_fill; i += blockDim.x) {
+      const int t = t_begin + i;
+      const bool ok = i < n_tok && (window <= 0 || t > qp - window);
+      rows[i] = ok ? (pages[t / page - p0] * page + t % page) * nkv + kvh
+                   : -1;
+      if (ok) {
+        lo = min(lo, i);
+        hi = i;
+      }
+    }
   }
 };
 
 }  // namespace
 
 // q (b, nq, hd), pools (P, page, nkv, hd), tbl (b, max_pages) and
-// lens (b,) int32, out (b, nq, hd); partials as in decode_common.cuh.
-// Returns the CUDA error code of the launches (0 = ok).
+// lens (b,) int32, out (b, nq, hd); nsplit splits of split_len tokens a
+// slot (a multiple of 64); part and counters as in decode_common.cuh
+// (unused for one split). Returns the CUDA error code of the launch (0 =
+// ok).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* tbl,
-    const void* lens, void* out, void* m_part, void* l_part, void* acc_part,
-    int b, int page, int max_pages, int nq, int nkv, int hd, int dtype,
-    int window, int split_len, int nsplit, float scale, void* stream) {
+    const void* lens, void* out, void* part, void* counters, int b, int page,
+    int max_pages, int nq, int nkv, int hd, int dtype, int window,
+    int split_len, int nsplit, float scale, void* stream) {
   PagedKV kv{static_cast<const int*>(tbl), static_cast<const int*>(lens),
              page, max_pages, nkv};
-  return rt::decode_dispatch(dtype, hd, q, k_pool, v_pool, kv, out, m_part,
-                             l_part, acc_part, b, nq, nkv, nsplit, split_len,
-                             window, scale,
-                             static_cast<cudaStream_t>(stream));
+  return rt::decode_dispatch(dtype, hd, q, k_pool, v_pool, kv, out, part,
+                             counters, b, nq, nkv, nsplit, split_len, window,
+                             scale, static_cast<cudaStream_t>(stream));
 }

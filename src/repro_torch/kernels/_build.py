@@ -90,14 +90,15 @@ _SIGNATURES = {
     # window, scale, stream
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 6 + [_I] * 9 + [_F, _P]),
-    # q, k, v, qpos, kpos, out, m, l, acc, b, S, nq, nkv, hd, dtype,
-    # window, split_len, nsplit, scale, stream
+    # q, k, v, qpos, kpos, out, partials, counters, b, S, nq, nkv, hd,
+    # dtype, window, split_len, nsplit, scale, stream
     "decode_attention": ("decode_attention_fwd",
-                         [_P] * 9 + [_I] * 9 + [_F, _P]),
-    # q, k_pool, v_pool, tbl, lens, out, m, l, acc, b, page, max_pages,
-    # nq, nkv, hd, dtype, window, split_len, nsplit, scale, stream
+                         [_P] * 8 + [_I] * 9 + [_F, _P]),
+    # q, k_pool, v_pool, tbl, lens, out, partials, counters, b, page,
+    # max_pages, nq, nkv, hd, dtype, window, split_len, nsplit, scale,
+    # stream
     "paged_decode_attention": ("paged_decode_attention_fwd",
-                               [_P] * 9 + [_I] * 10 + [_F, _P]),
+                               [_P] * 8 + [_I] * 10 + [_F, _P]),
     # x, dt, a, b, c, d_skip, init (or null), y, fin, cb, B, S, H, P, N,
     # dtype, stream
     "ssd_scan": ("ssd_scan_fwd", [_P] * 10 + [_I] * 6 + [_P]),

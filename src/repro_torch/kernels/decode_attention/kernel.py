@@ -7,7 +7,7 @@ CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -15,19 +15,71 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 LAUNCHES = 0          # kernel launches since the last reset
-SPLIT_LEN = 128       # kv tokens per block of the split-K first pass
-MAX_GROUP = 8         # q heads per kv head the kernel handles
+MAX_SPLITS = 16       # splits a row, which the last block to finish merges
+GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernel is built for
+MAX_GROUP = GROUPS[-1]
+
+# per (device, stream): int32 counters the last block of each (row, kv
+# head) uses to find itself; they start at 0 and the kernel resets them,
+# so they outlive every launch
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def split_partials(b: int, nkv: int, n_tokens: int, hd: int,
-                   device) -> tuple:
-    """Scratch for the split-K partials: (nsplit, m, l, acc) in f32."""
-    nsplit = max(1, -(-n_tokens // SPLIT_LEN))
-    m = torch.empty((b, nkv, nsplit, MAX_GROUP), dtype=torch.float32,
-                    device=device)
-    return (nsplit, m, torch.empty_like(m),
-            torch.empty((b, nkv, nsplit, MAX_GROUP, hd), dtype=torch.float32,
-                        device=device))
+def group_width(g: int) -> int:
+    """The kernel's group width for g q heads per kv head: the smallest
+    of GROUPS that holds g (the extra heads idle)."""
+    return next(w for w in GROUPS if w >= g)
+
+
+def split_plan(b: int, nkv: int, n_tokens: int, n_sm: int) -> Tuple[int, int]:
+    """(split_len, nsplit) of a launch over rows of ``n_tokens`` slots (the
+    cache's S, or max_pages * page), from shapes alone: the wrapper never
+    reads lengths back. Enough splits for two blocks an SM where the b * nkv
+    rows leave room, at most MAX_SPLITS, each a whole number of the
+    kernel's 64-token tiles."""
+    n_tokens = max(n_tokens, 1)
+    want = max(1, min(MAX_SPLITS, -(-2 * n_sm // (b * nkv)),
+                      -(-n_tokens // 64)))
+    split_len = 64 * -(-n_tokens // (64 * want))
+    return split_len, -(-n_tokens // split_len)
+
+
+def partial_floats(b: int, nkv: int, g: int, hd: int, nsplit: int) -> int:
+    """f32 scratch of the split partials: acc (b, nkv, nsplit, G, hd) and
+    m, l (b, nkv, nsplit, 2, G), G = group_width(g); none for one split."""
+    if nsplit == 1:
+        return 0
+    return b * nkv * nsplit * group_width(g) * (hd + 2)
+
+
+def launch_scratch(b: int, nkv: int, g: int, hd: int, n_tokens: int,
+                   device: torch.device):
+    """(split_len, nsplit, partials, counters) of one launch on
+    ``device``: the partials are one ``torch.empty``, the counters are
+    kept per stream; None, None for a launch of one split."""
+    split_len, nsplit = split_plan(
+        b, nkv, n_tokens,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    n = partial_floats(b, nkv, g, hd, nsplit)
+    if not n:
+        return split_len, nsplit, None, None
+    part = torch.empty(n, dtype=torch.float32, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < b * nkv:
+        cnt = _counters[key] = torch.zeros(b * nkv, dtype=torch.int32,
+                                           device=device)
+    return split_len, nsplit, part, cnt
+
+
+def ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def check_group(name: str, nq: int, nkv: int) -> None:
+    B.require(nkv > 0 and nq % nkv == 0 and nq // nkv <= MAX_GROUP,
+              f"{name}: {nq} q heads over {nkv} kv heads (at most "
+              f"{MAX_GROUP} q heads per kv head)")
 
 
 def decode_attention(q, k, v, q_pos, kv_pos, *,
@@ -42,20 +94,22 @@ def decode_attention(q, k, v, q_pos, kv_pos, *,
               f"k{tuple(k.shape)}")
     b, nq, hd = q.shape
     _, S, nkv, _ = k.shape
-    B.require(k.shape[0] == b and k.shape[3] == hd and nkv > 0
-              and nq % nkv == 0 and nq // nkv <= MAX_GROUP,
-              f"decode_attention: q{tuple(q.shape)} vs k{tuple(k.shape)} "
-              f"(at most {MAX_GROUP} q heads per kv head)")
+    B.require(k.shape[0] == b and k.shape[3] == hd,
+              f"decode_attention: q{tuple(q.shape)} vs k{tuple(k.shape)}")
+    check_group("decode_attention", nq, nkv)
     B.require(tuple(q_pos.shape) == (b,) and tuple(kv_pos.shape) == (b, S),
               "decode_attention: positions must be (b,) and (b, S)")
+    B.require(b * S * nkv < 2 ** 31,
+              "decode_attention: the kernel indexes K/V rows in int32")
     code = B.check_operands("decode_attention", (q, k, v), (q_pos, kv_pos),
                             hd)
     win = B.check_window(window)
     out = torch.empty_like(q)
-    nsplit, m, l, acc = split_partials(b, nkv, S, hd, q.device)
+    split_len, nsplit, part, cnt = launch_scratch(b, nkv, nq // nkv, hd, S,
+                                                  q.device)
     B.launch("decode_attention", q.device, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-             out.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-             b, S, nq, nkv, hd, code, win, SPLIT_LEN, nsplit, hd ** -0.5)
+             out.data_ptr(), ptr(part), ptr(cnt), b, S, nq, nkv, hd, code, win,
+             split_len, nsplit, hd ** -0.5)
     LAUNCHES += 1
     return out

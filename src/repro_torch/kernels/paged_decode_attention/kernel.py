@@ -14,9 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build as B
-from repro_torch.kernels.decode_attention.kernel import (MAX_GROUP,
-                                                         SPLIT_LEN,
-                                                         split_partials)
+from repro_torch.kernels.decode_attention.kernel import (check_group,
+                                                         launch_scratch, ptr)
 from repro_torch.kernels.paged_decode_attention.ref import (
                                                             paged_decode_attention_ref)
 
@@ -37,26 +36,27 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
               f"paged_decode_attention: bad shapes q{tuple(q.shape)} "
               f"pool{tuple(k_pool.shape)}")
     b, nq, hd = q.shape
-    _, page, nkv, _ = k_pool.shape
-    B.require(k_pool.shape[3] == hd and nkv > 0 and nq % nkv == 0
-              and nq // nkv <= MAX_GROUP,
+    n_pages, page, nkv, _ = k_pool.shape
+    B.require(k_pool.shape[3] == hd,
               f"paged_decode_attention: q{tuple(q.shape)} vs "
-              f"pool{tuple(k_pool.shape)} (at most {MAX_GROUP} q heads "
-              f"per kv head)")
+              f"pool{tuple(k_pool.shape)}")
+    check_group("paged_decode_attention", nq, nkv)
     B.require(block_tbl.dim() == 2 and block_tbl.shape[0] == b
               and tuple(lengths.shape) == (b,),
               "paged_decode_attention: block_tbl (b, max_pages), lengths (b,)")
+    B.require(n_pages * page * nkv < 2 ** 31,
+              "paged_decode_attention: the kernel indexes K/V rows in int32")
     code = B.check_operands("paged_decode_attention", (q, k_pool, v_pool),
                             (block_tbl, lengths), hd)
     win = B.check_window(window)
     max_pages = block_tbl.shape[1]
     out = torch.empty_like(q)
-    nsplit, m, l, acc = split_partials(b, nkv, max_pages * page, hd,
-                                       q.device)
+    split_len, nsplit, part, cnt = launch_scratch(
+        b, nkv, nq // nkv, hd, max_pages * page, q.device)
     B.launch("paged_decode_attention", q.device, q.data_ptr(),
              k_pool.data_ptr(), v_pool.data_ptr(), block_tbl.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-             acc.data_ptr(), b, page, max_pages, nq, nkv, hd, code, win,
-             SPLIT_LEN, nsplit, hd ** -0.5)
+             lengths.data_ptr(), out.data_ptr(), ptr(part), ptr(cnt), b, page,
+             max_pages, nq, nkv, hd, code, win, split_len, nsplit,
+             hd ** -0.5)
     LAUNCHES += 1
     return out

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
@@ -233,3 +234,205 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert qb.is_contiguous()
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(qb, q.bfloat16(), q.bfloat16(), pos, pos)
+
+
+# -- the split-K decode pair: 64-token tiles, splits merged by the last
+# block of a (row, kv head) to finish, group widths 1/2/4/8
+
+def _ring_pos(S, cur):
+    """kv_pos of a ring buffer of S slots after writing positions 0..cur
+    at slot p % S (models/layers.py writes at cur_len % S)."""
+    j = torch.arange(S, dtype=torch.int32)
+    if cur < S:
+        return torch.where(j <= cur, j, torch.full_like(j, -1))
+    return cur - (cur - j) % S
+
+
+def _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(kv_rows)
+    q = _randn(gen, (b, nq, hd), dtype, dev)
+    k = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    v = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    kp = torch.stack(kv_rows).to(dev).contiguous()
+    qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    return q, k, v, qp, kp
+
+
+def _prefix_rows(S, lens):
+    t = torch.arange(S, dtype=torch.int32)
+    return [torch.where(t < n, t, torch.full_like(t, -1)) for n in lens]
+
+
+def _check_dense(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, window=None):
+    args = _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos)
+    ops.reset_launch_counts()
+    out = decode_attention(*args, window=window)
+    assert ops.launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(out, decode_attention_ref(*args, window=window),
+                               **TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    # lengths no multiple of the 64-token tile or of the split
+    dict(S=700, nq=8, nkv=2, hd=128, lens=[700, 333, 65]),
+    # one row spanning many splits
+    dict(S=2500, nq=4, nkv=1, hd=64, lens=[2500, 2431]),
+    # a window that starts inside a tile (keys 924..1023)
+    dict(S=1024, nq=4, nkv=2, hd=64, lens=[1024, 700], window=100),
+    # wrapped ring buffers: live slots rotated against slot order
+    dict(S=300, nq=8, nkv=2, hd=128, cur=[1000, 299, 450]),
+    dict(S=600, nq=4, nkv=1, hd=32, cur=[1500, 2000], window=200),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_split_edges(dev, case, dtype):
+    S = case["S"]
+    if "cur" in case:
+        rows, qp = [_ring_pos(S, c) for c in case["cur"]], case["cur"]
+    else:
+        rows, qp = _prefix_rows(S, case["lens"]), [n - 1 for n in case["lens"]]
+    _check_dense(dev, dtype, S, case["nq"], case["nkv"], case["hd"], rows, qp,
+                 case.get("window"))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_group_widths(dev, dtype, g, hd):
+    S, nkv = 600, 2
+    _check_dense(dev, dtype, S, g * nkv, nkv, hd,
+                 _prefix_rows(S, [600, 257]), [599, 256])
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_splits_longer_than_a_row_table(dev, dtype, window):
+    """128 (row, kv head) pairs leave 3 splits of 1216 tokens over S 3500,
+    so each split walks two segments of its row table (1024 + 192); one
+    ring wraps, and the window starts in a split's second segment."""
+    S, b = 3500, 8
+    assert DK.split_plan(b, 16, S, 132) == (1216, 3)
+    rows = _prefix_rows(S, [3500, 3001, 2300, 1100, 1025, 1024, 64, 1])
+    rows[7], qp = _ring_pos(S, 9000), [3499, 3000, 2299, 1099, 1024, 1023,
+                                       63, 9000]
+    _check_dense(dev, dtype, S, 32, 16, 64, rows, qp, window)
+
+
+@pytest.mark.parametrize("S", [100, 600])          # one split, several
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_row_without_keys_is_zero(dev, dtype, S):
+    """The TPU kernel's l == 0 -> 1 gives 0 (the plain version does not:
+    its softmax over all-masked scores is uniform)."""
+    rows = _prefix_rows(S, [0, S - 7, S])
+    args = _dense_inputs(dev, dtype, S, 8, 2, 64, rows, [5, S - 8, -1])
+    out = decode_attention(*args)
+    assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
+    torch.testing.assert_close(out[1], decode_attention_ref(*args)[1],
+                               **TOL[dtype])
+
+
+def _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens, seed=6):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lens)
+    n_pages = b * max_pages + 1
+    kpool = _randn(gen, (n_pages, page, nkv, hd), dtype, dev)
+    vpool = _randn(gen, (n_pages, page, nkv, hd), dtype, dev)
+    q = _randn(gen, (b, nq, hd), dtype, dev)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
+    off = 0
+    for i, n in enumerate(lens):               # scattered physical pages
+        used = -(-n // page)
+        tbl[i, :used] = perm[off:off + used].to(torch.int32)
+        off += used
+    return q, kpool, vpool, tbl, torch.tensor(lens, dtype=torch.int32,
+                                              device=dev)
+
+
+def _check_paged(dev, dtype, page, max_pages, nq, nkv, hd, lens,
+                 window=None):
+    args = _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens)
+    ops.reset_launch_counts()
+    out = paged_decode_attention(*args, window=window)
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    torch.testing.assert_close(
+        out, paged_decode_attention_ref(*args, window=window), **TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    # page-multiple lengths, and lengths no multiple of 64 or the split
+    dict(page=16, max_pages=40, nq=8, nkv=2, hd=128, lens=[640, 256, 333]),
+    # one slot spanning many splits, one of a single token
+    dict(page=16, max_pages=160, nq=4, nkv=1, hd=64, lens=[2555, 1]),
+    # pages no divisor of the tile; a window starting inside a tile
+    dict(page=24, max_pages=50, nq=4, nkv=2, hd=64, lens=[1200, 999],
+         window=150),
+    dict(page=8, max_pages=100, nq=8, nkv=4, hd=32, lens=[800, 555],
+         window=70),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_split_edges(dev, case, dtype):
+    _check_paged(dev, dtype, case["page"], case["max_pages"], case["nq"],
+                 case["nkv"], case["hd"], case["lens"], case.get("window"))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_group_widths(dev, dtype, g, hd):
+    _check_paged(dev, dtype, 16, 40, g * 2, 2, hd, [640, 300])
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_splits_longer_than_a_row_table(dev, dtype, window):
+    """As the dense case: splits of 1216 tokens over 219 pages of 16, two
+    segments of the row table each."""
+    _check_paged(dev, dtype, 16, 219, 32, 16, 64,
+                 [3504, 3001, 2300, 1100, 1025, 1024, 64, 1], window)
+
+
+@pytest.mark.parametrize("max_pages", [4, 40])     # one split, several
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_slot_without_keys_is_zero(dev, dtype, max_pages):
+    lens = [0, max_pages * 16 - 3, 0]
+    args = _paged_inputs(dev, dtype, 16, max_pages, 8, 2, 64, lens)
+    out = paged_decode_attention(*args)
+    assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
+    torch.testing.assert_close(out[1], paged_decode_attention_ref(*args)[1],
+                               **TOL[dtype])
+
+
+def test_decode_merge_counters_reset_between_launches(dev):
+    """The last block of each (row, kv head) resets its counter, so
+    launch after launch on one stream merges its own splits."""
+    S = 1500
+    for seed in range(3):
+        args = _dense_inputs(dev, torch.float32, S, 8, 2, 64,
+                             _prefix_rows(S, [1500, 900]), [1499, 899],
+                             seed=seed)
+        torch.testing.assert_close(decode_attention(*args),
+                                   decode_attention_ref(*args),
+                                   **TOL[torch.float32])
+
+
+def test_decode_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q, k, v, qp, kp = _dense_inputs(dev, torch.bfloat16, 64, 4, 2, 64,
+                                    _prefix_rows(64, [64]), [63])
+    # a contiguous view one element into its storage: 16-byte copies
+    kb = torch.zeros(k.numel() + 1, dtype=k.dtype, device=dev)[1:].view(
+        k.shape)
+    assert kb.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q, kb, v, qp, kp)
+    with pytest.raises(ValueError, match="at most 8"):
+        decode_attention(torch.zeros((1, 18, 64), dtype=q.dtype, device=dev),
+                         k, v, qp, kp)
+    args = _paged_inputs(dev, torch.bfloat16, 16, 4, 4, 2, 64, [50])
+    pool = args[1]
+    pb = torch.zeros(pool.numel() + 1, dtype=pool.dtype, device=dev)[1:].view(
+        pool.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(args[0], args[1], pb, *args[3:])

@@ -19,6 +19,7 @@ from repro.kernels import decode_attention as JD  # noqa: E402
 from repro.kernels import flash_attention as JF  # noqa: E402
 from repro.kernels import paged_decode_attention as JP  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
@@ -232,3 +233,60 @@ def test_paged_plain_matches_pallas_interpret():
     ref = jax_paged_kernel(*(a for a, _ in args), window=win, interpret=True)
     _close(paged_decode_attention(*(t for _, t in args), window=win), ref,
            "float32")
+
+
+# ---------------------------------------------------------------------------
+# the decode pair's launch plan (host side of the CUDA wrappers)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b, nkv, n_tokens, plan", [
+    (4, 8, 3072, (384, 8)),         # the serving shape: 8 splits of 384
+    (1, 1, 64, (64, 1)),            # one tile
+    (64, 8, 3072, (3072, 1)),       # rows enough to fill the card alone
+    (2, 2, 600, (64, 10)),
+    (1, 8, 3072, (192, 16)),        # few rows: more, shorter splits
+    (4, 8, 100_000, (11136, 9)),    # long rows: longer splits
+    (1, 1, 100_000, (6272, 16)),    # at most MAX_SPLITS
+])
+def test_decode_split_plan_covers_the_row(b, nkv, n_tokens, plan):
+    """The grid is sized from shapes alone (S, or max_pages * page): at
+    most MAX_SPLITS splits a row, whole 64-token tiles each, covering
+    every slot once."""
+    split_len, nsplit = DK.split_plan(b, nkv, n_tokens, n_sm=132)
+    assert (split_len, nsplit) == plan
+    assert split_len % 64 == 0 and 1 <= nsplit <= DK.MAX_SPLITS
+    assert (nsplit - 1) * split_len < n_tokens <= nsplit * split_len
+
+
+@pytest.mark.parametrize("g, width", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                      (5, 8), (8, 8)])
+def test_decode_group_width_and_partials(g, width):
+    """A group runs on the smallest width of 1/2/4/8 that holds it, and
+    the partials are sized to that width and to the launch's splits:
+    acc (b, nkv, nsplit, G, hd) plus m and l; none for a single split."""
+    assert DK.group_width(g) == width
+    b, nkv, hd, nsplit = 4, 8, 128, 8
+    assert DK.partial_floats(b, nkv, g, hd, nsplit) == (
+        b * nkv * nsplit * width * hd + b * nkv * nsplit * 2 * width)
+    assert DK.partial_floats(b, nkv, g, hd, 1) == 0
+
+
+def test_pallas_decode_gives_zero_for_a_row_without_keys():
+    """What the CUDA pair is held to on the card: the TPU kernel turns
+    l == 0 into 1, so a row with no valid key reads 0 (the plain versions
+    give the mean of V instead)."""
+    rng = np.random.default_rng(11)
+    b, S, nq, nkv, hd = 2, 32, 4, 2, 32
+    q = rng.standard_normal((b, nq, hd)).astype(np.float32)
+    k = rng.standard_normal((b, S, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, S, nkv, hd)).astype(np.float32)
+    kv_pos = np.tile(np.arange(S, dtype=np.int32), (b, 1))
+    kv_pos[0] = -1
+    q_pos = np.array([S - 1, S - 1], np.int32)
+    out = np.asarray(jax_decode_kernel(q, k, v, q_pos, kv_pos,
+                                       interpret=True))
+    assert np.all(out[0] == 0)
+    plain = decode_attention(*(torch.from_numpy(x) for x in
+                               (q, k, v, q_pos, kv_pos)))
+    np.testing.assert_allclose(plain[1].numpy(), out[1], **TOL["float32"])
+    assert np.abs(plain[0].numpy()).max() > 0

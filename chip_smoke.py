@@ -7,8 +7,9 @@ Phases (every failure raises and ends the run with a non-zero code):
   1. device: name and power limit, build the CUDA kernels (timed);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the serving path's shapes (bf16 and f32, padding, ragged lengths,
-     a window; for ssd_scan an initial state, a padded tail and a single
-     chunk), with its device time a launch on cold inputs (``ms``) and a
+     a window; for ssd_scan an initial state, a padded tail, a single
+     chunk and two rows of which one is padded, and the device kernels a
+     call issues), with its device time a launch on cold inputs (``ms``) and a
      single call's time (``call_ms``, host path included), its plain
      version's time, a PyTorch call that computes the same function
      where one exists (a yardstick only, timed both ways) and its bound;
@@ -147,6 +148,19 @@ def device_ms(torch, fn, sets, n: int = DEVICE_LAUNCHES) -> float:
             return a.elapsed_time(b) / n
     raise RuntimeError("device_ms: the spin ended before the host had "
                        "queued the launches")
+
+
+def device_kernels(torch, fn) -> int:
+    """Device kernels that one call of ``fn`` (after a warm-up call)
+    issues, as torch.profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 # ---------------------------------------------------------------------------
@@ -399,27 +413,30 @@ def check_kernels(torch, dev):
 
 def check_ssd(torch, dev):
     """ssd_scan against its plain version at mamba2-370m's prefill shape
-    (B 1, S 2048, H 32, P 64, N 128, chunk 256) and a single chunk."""
+    (B 1, S 2048, H 32, P 64, N 128, chunk 256), a single chunk and two
+    rows of which one is padded; the device kernels one call issues."""
+    from repro_torch.kernels.ssd_scan import kernel as SSD
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     B, S, H, P, N, chunk = 1, SSM_MAX_LEN, 32, 64, 128, 256
 
-    def inputs(dtype, s=S, init=False, n_pad=0):
+    def inputs(dtype, s=S, init=False, n_pad=0, bsz=B, pad_rows=None):
         dt_ = getattr(torch, dtype)
 
         def randn(shape, scale=1.0):
             return scale * torch.randn(shape, generator=gen, device=dev)
 
-        dt = torch.nn.functional.softplus(randn((B, s, H)))
+        dt = torch.nn.functional.softplus(randn((bsz, s, H)))
         if n_pad:
-            dt[:, -n_pad:] = 0
-        return (randn((B, s, H, P)).to(dt_), dt,
-                -torch.exp(randn((H,), 0.3)), randn((B, s, N), 0.3).to(dt_),
-                randn((B, s, N), 0.3).to(dt_), torch.ones((H,), device=dev),
-                randn((B, H, P, N), 0.1) if init else
-                torch.zeros((B, H, P, N), device=dev))
+            dt[pad_rows if pad_rows is not None else slice(None), -n_pad:] = 0
+        return (randn((bsz, s, H, P)).to(dt_), dt,
+                -torch.exp(randn((H,), 0.3)),
+                randn((bsz, s, N), 0.3).to(dt_),
+                randn((bsz, s, N), 0.3).to(dt_), torch.ones((H,), device=dev),
+                randn((bsz, H, P, N), 0.1) if init else
+                torch.zeros((bsz, H, P, N), device=dev))
 
     errs = []
     for label, dtype, kw in [
@@ -427,7 +444,9 @@ def check_ssd(torch, dev):
             ("S2048", "float32", {}),
             ("S2048 init state", "bfloat16", dict(init=True)),
             ("S2048 dt=0 over the last 100", "bfloat16", dict(n_pad=100)),
-            ("S96 one chunk of 96", "bfloat16", dict(s=96))]:
+            ("S96 one chunk of 96", "bfloat16", dict(s=96)),
+            ("B2 S2048 init, dt=0 over the last 700 of row 1 only",
+             "bfloat16", dict(bsz=2, init=True, n_pad=700, pad_rows=[1]))]:
         args = inputs(dtype, **kw)
         c = min(chunk, args[0].shape[1])
         y, fin = ssd_scan(*args[:6], c, args[6])
@@ -449,6 +468,9 @@ def check_ssd(torch, dev):
         return (*args[:6], chunk, args[6]), None
     first = make()
     x = first[0][0]
+    n_dev = device_kernels(torch, lambda: ssd_scan(*first[0]))
+    log(f"  ssd_scan: {n_dev} device kernels a call")
+    assert n_dev == SSD.DEVICE_KERNELS, (n_dev, SSD.DEVICE_KERNELS)
     # work of the kernel's own 64-token sub-chunks: C·Bᵀ and the
     # intra-chunk product over lower-triangular pairs, the inter-chunk
     # term and the state update over every (token, p, n)
@@ -459,7 +481,7 @@ def check_ssd(torch, dev):
     nbytes = (2 * 2 * x.numel() + 2 * 2 * B * S * N + 4 * B * S * H
               + 4 * 2 * H + 4 * 2 * B * H * P * N)
     # library_ms None: no single PyTorch call computes the SSD scan
-    res = dict(max_abs_err=max(errs),
+    res = dict(max_abs_err=max(errs), device_kernels=n_dev,
                **timing(torch, first, make, ssd_scan, ssd_chunked, None,
                         nbytes, flops, plain_n=20,
                         shape=f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} bf16, "
@@ -678,8 +700,9 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
 
 
 def ptxas_summary(text):
-    """(kernel, registers, spill stores/loads) of each function that
-    ``nvcc -Xptxas -v`` compiled, names demangled where c++filt exists."""
+    """(kernel, registers, spill stores/loads, static shared bytes, mangled
+    name) of each function that ``nvcc -Xptxas -v`` compiled, names
+    demangled where c++filt exists."""
     rows, name, spill = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -691,7 +714,9 @@ def ptxas_summary(text):
             spill = f"{m.group(1)}/{m.group(2)} bytes"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append([name, int(m.group(1)), spill])
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)), spill,
+                         int(smem.group(1)) if smem else 0, name])
             name = None
     if rows and shutil.which("c++filt"):
         out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
@@ -699,6 +724,19 @@ def ptxas_summary(text):
         for r, d in zip(rows, out):
             r[0] = d.split(">(")[0] + ">" if ">(" in d else d
     return rows
+
+
+def ssd_dynamic_smem(torch, mangled):
+    """Dynamic shared memory of an ssd_scan chunk kernel from its mangled
+    name (dtype, N, PB), or None for a kernel that asks for none."""
+    from repro_torch.kernels.ssd_scan.kernel import smem_bytes
+    m = re.search(r"(state_kernel|out_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi"
+                  r"(\d+)E", mangled)
+    if not m:
+        return None
+    dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+    return smem_bytes(int(m.group(3)), int(m.group(4)), dtype)[
+        m.group(1) == "out_kernel"]
 
 
 ALL_PHASES = ("1", "2", "3", "3b", "4", "5", "4b")
@@ -744,8 +782,12 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"[1] kernels built in {build_s:.1f} s")
     for kname, text in _build.build_log.items():
-        for fn, regs, spill in ptxas_summary(text):
-            log(f"    {kname}: {fn}: {regs} registers, spill {spill}")
+        for fn, regs, spill, smem, mangled in ptxas_summary(text):
+            dyn = (ssd_dynamic_smem(torch, mangled) if kname == "ssd_scan"
+                   else None)
+            log(f"    {kname}: {fn}: {regs} registers, spill {spill}, "
+                f"shared {smem} bytes static"
+                + (f" + {dyn} dynamic" if dyn is not None else ""))
 
     kernels = {}
     if "2" in phases:
@@ -836,6 +878,8 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), call_ms=r.get("call_ms"),
             library_call_ms=r.get("library_call_ms")))
+        if "device_kernels" in r:
+            rows[-1]["device_kernels"] = r["device_kernels"]
         if "chunk" in r:
             rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -99,21 +99,27 @@ _SIGNATURES = {
     # stream
     "paged_decode_attention": ("paged_decode_attention_fwd",
                                [_P] * 8 + [_I] * 10 + [_F, _P]),
-    # x, dt, a, b, c, d_skip, init (or null), y, fin, cb, B, S, H, P, N,
-    # dtype, stream
-    "ssd_scan": ("ssd_scan_fwd", [_P] * 10 + [_I] * 6 + [_P]),
+    # x, dt, a, b, c, d_skip, init (or null), y, fin, states, dec, prev,
+    # B, S, H, P, N, L, dtype, stream
+    "ssd_scan": ("ssd_scan_fwd", [_P] * 12 + [_I] * 7 + [_P]),
 }
 
 
 def load(name: str):
     """The C entry point of kernel ``name``, building it if needed."""
+    sym, argtypes = _SIGNATURES[name]
+    return symbol(name, sym, argtypes, ctypes.c_int)
+
+
+def symbol(name: str, sym: str, argtypes, restype):
+    """Function ``sym`` of kernel ``name``'s library, building it if
+    needed."""
     if name not in _libs:
         build_all([name])
         _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-    sym, argtypes = _SIGNATURES[name]
     fn = getattr(_libs[name], sym)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

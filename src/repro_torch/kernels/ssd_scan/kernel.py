@@ -3,23 +3,63 @@ the Hopper replacement of the TPU kernel
 ``repro/kernels/ssd_scan/kernel.py:ssd_scan``.
 
 CPU tensors take the plain PyTorch version (``ref.ssd_chunked``); CUDA
-tensors launch the kernel or raise. The kernel walks the sequence in its
-own sub-chunks of ``SUB`` tokens, so ``chunk`` only has to divide the
+tensors launch the kernel or raise. A call issues three device kernels
+(each chunk's own state, the recurrence over chunks, then y), and counts
+as one launch. The kernel cuts the sequence into its own state chunks of
+``plan(...).chunk`` tokens, so ``chunk`` only has to divide the
 sequence, as the reference kernel requires.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-LAUNCHES = 0          # kernel launches since the last reset
-SUB = 64              # tokens per sub-chunk of the kernel
-P_BLOCK = 16          # state rows (of head_dim) per block
+LAUNCHES = 0          # calls that launched the kernel since the last reset
+DEVICE_KERNELS = 3    # device kernels one call issues
+TILE = 64             # tokens per score tile of the kernel
+# tokens per state chunk, at most (a multiple of TILE): the output pass
+# holds a whole chunk's key tiles in shared memory, four in bf16, one in f32
+STATE_CHUNK = {torch.bfloat16: 256, torch.float32: 64}
 STATE_DIMS = (16, 64, 128)
+HEAD_DIM_STEP = 16    # P must be a multiple of this
+
+
+class Plan(NamedTuple):
+    """What one launch needs, from shapes alone: the state chunk length,
+    the number of chunks, and the scratch: the chunks' own states and
+    their log-decays in f32, and the state before each chunk in x's
+    dtype (bf16 keeps a high and a low part, so twice the elements)."""
+    chunk: int
+    n_chunks: int
+    state_floats: int
+    decay_floats: int
+    prev_elems: int
+
+
+def plan(bsz: int, S: int, H: int, P: int, N: int,
+         dtype: torch.dtype) -> Plan:
+    """State chunks of STATE_CHUNK[dtype] tokens, or of the sequence
+    rounded up to whole tiles when it is shorter; the last chunk may be
+    ragged."""
+    chunk = min(STATE_CHUNK[dtype], TILE * -(-S // TILE))
+    n = -(-S // chunk)
+    states = bsz * n * H * P * N
+    planes = 2 if dtype == torch.bfloat16 else 1
+    return Plan(chunk, n, states, bsz * n * H, planes * states)
+
+
+def smem_bytes(N: int, P: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Dynamic shared memory (bytes) of the chunk-state and the output
+    kernels at state dim N, head dim P and ``dtype`` (builds the library)."""
+    fn = B.symbol("ssd_scan", "ssd_scan_smem", [ctypes.c_int] * 4,
+                  ctypes.c_long)
+    code = B.DTYPE_CODES[dtype]
+    return fn(N, P, code, 1), fn(N, P, code, 3)
 
 
 def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
@@ -27,7 +67,9 @@ def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H, P); dt (B, S, H) f32; a, d_skip (H,) f32; b, c
     (B, S, N) in x's dtype; init_state (B, H, P, N) f32 or None. Returns
-    y (B, S, H, P) in x's dtype and the final state (B, H, P, N) f32."""
+    y (B, S, H, P) in x's dtype and the final state (B, H, P, N) f32.
+    On the card: P a multiple of 16, N in STATE_DIMS, x, b, c and
+    init_state 16-byte aligned."""
     global LAUNCHES
     operands = [x, dt, a, b, c, d_skip]
     if init_state is not None:
@@ -60,17 +102,22 @@ def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
               "ssd_scan: dt, a, d_skip and init_state must be float32")
     B.require(all(t.is_contiguous() for t in operands),
               "ssd_scan: every operand must be contiguous")
-    B.require(P % P_BLOCK == 0,
-              f"ssd_scan: head_dim {P} not a multiple of {P_BLOCK}")
+    B.require(all(t.data_ptr() % 16 == 0 for t in (x, b, c, *operands[6:])),
+              "ssd_scan: x, b, c and init_state must be 16-byte aligned")
+    B.require(P % HEAD_DIM_STEP == 0,
+              f"ssd_scan: head_dim {P} not a multiple of {HEAD_DIM_STEP}")
     B.require(N in STATE_DIMS, f"ssd_scan: state_dim {N} not in {STATE_DIMS}")
+    pl = plan(bsz, S, H, P, N, x.dtype)
     y = torch.empty_like(x)
     fin = torch.empty((bsz, H, P, N), dtype=torch.float32, device=x.device)
-    cb = torch.empty((bsz, -(-S // SUB), SUB, SUB), dtype=torch.float32,
-                     device=x.device)
+    scratch = torch.empty(pl.state_floats + pl.decay_floats,
+                          dtype=torch.float32, device=x.device)
+    prev = torch.empty(pl.prev_elems, dtype=x.dtype, device=x.device)
     B.launch("ssd_scan", x.device, x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), b.data_ptr(), c.data_ptr(), d_skip.data_ptr(),
              init_state.data_ptr() if init_state is not None else None,
-             y.data_ptr(), fin.data_ptr(), cb.data_ptr(),
-             bsz, S, H, P, N, B.DTYPE_CODES[x.dtype])
+             y.data_ptr(), fin.data_ptr(), scratch.data_ptr(),
+             scratch[pl.state_floats:].data_ptr(), prev.data_ptr(),
+             bsz, S, H, P, N, pl.chunk, B.DTYPE_CODES[x.dtype])
     LAUNCHES += 1
     return y, fin

@@ -10,9 +10,12 @@ queries, ragged caches, windows, GQA groups 1-8, head dims 32-128; for
 flash also lengths that are no multiple of its 128-row tiles, a gathered
 prefix whose -1 gap covers whole key tiles, a query tile that is all
 padding, a window inside one tile and cross-attention with S < s; for
-the SSD scan the cases of ``tests/test_torch_ssm.py`` plus a padded tail,
-sequences that are no multiple of the kernel's 64-token sub-chunk, and
-an initial state. The serving shapes are checked by ``chip_smoke.py``.
+the SSD scan the cases of ``tests/test_torch_ssm.py`` plus a padded tail
+(on one row of two), sequences over several of the kernel's state chunks
+that are no multiple of its 64-token tile, state chunks of 64 and 128,
+every state dim at every head-dim slice, strong decay, an initial state
+and the serving shape. The other serving shapes are checked by
+``chip_smoke.py``.
 """
 import pytest
 
@@ -28,6 +31,7 @@ from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref)
+from repro_torch.kernels.ssd_scan import kernel as SSD  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
@@ -158,23 +162,48 @@ def test_paged_kernel_matches_plain(dev, case, dtype):
 
 
 @pytest.mark.parametrize("case", [
-    # B, S, H, P, N, chunk, init, padded tail
+    # B, S, H, P, N, chunk, init, padded tail[, options]
     (2, 64, 4, 32, 16, 16, False, 0),
     (1, 128, 2, 64, 128, 32, True, 0),
     (2, 96, 3, 32, 64, 32, True, 0),          # 96 = 64 + a 32-token rest
     (1, 200, 2, 16, 64, 40, True, 30),        # dt = 0 over the last 30
     (1, 256, 4, 64, 128, 256, True, 0),       # the model's chunk
+    # several of the kernel's 256-token state chunks, the last tile ragged
+    (1, 600, 2, 32, 64, 40, True, 0),
+    (2, 520, 3, 64, 128, 40, False, 0),
+    # shorter state chunks than the wrapper plans for bf16: 64 and 128
+    (1, 600, 2, 32, 64, 40, True, 0, dict(state_chunk=128)),
+    (2, 200, 2, 16, 16, 40, True, 30, dict(state_chunk=64)),
+    # B = 2 with the dt = 0 tail on the second row only, across chunks
+    (2, 700, 2, 32, 64, 70, True, 300, dict(pad_rows=[1])),
+    # every state dim at every head-dim slice; P 48 and 128 take several
+    *[(1, 160, 2, P, N, 32, False, 0) for N in (16, 64, 128)
+      for P in (16, 32, 64)],
+    (1, 130, 2, 48, 64, 26, True, 0),
+    (1, 192, 1, 128, 16, 64, True, 0),
+    # strong decay: a ≈ -8, dt ≈ 5, exp(cum) underflows to 0
+    (1, 300, 2, 32, 64, 100, True, 0, dict(strong=True)),
+    # the serving shape (mamba2-370m's padded prefill)
+    (1, 2048, 32, 64, 128, 256, False, 0),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_ssd_kernel_matches_plain(dev, case, dtype):
-    B, S, H, P, N, chunk, init, n_pad = case
+def test_ssd_kernel_matches_plain(dev, monkeypatch, case, dtype):
+    B, S, H, P, N, chunk, init, n_pad = case[:8]
+    opt = case[8] if len(case) > 8 else {}
+    if "state_chunk" in opt:
+        monkeypatch.setitem(SSD.STATE_CHUNK, dtype, min(
+            opt["state_chunk"], SSD.STATE_CHUNK[dtype]))
     gen = torch.Generator(device=dev).manual_seed(3)
     f32 = torch.float32
     x = _randn(gen, (B, S, H, P), dtype, dev)
     dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), f32, dev))
+    if opt.get("strong"):
+        dt = 5 + dt.clamp(max=1)
     if n_pad:
-        dt[:, -n_pad:] = 0
+        dt[opt.get("pad_rows", slice(None)), -n_pad:] = 0
     a = -torch.exp(0.3 * _randn(gen, (H,), f32, dev))
+    if opt.get("strong"):
+        a = 8 * a / a.abs().max()
     b = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
     c = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
     d = torch.ones((H,), device=dev)
@@ -184,6 +213,7 @@ def test_ssd_kernel_matches_plain(dev, case, dtype):
     assert ops.launch_counts()["ssd_scan"] == 1
     yr, fr = ssd_chunked(x, dt, a, b, c, d, chunk, s0)
     assert y.dtype == dtype and fin.dtype == f32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(fin).all()
     torch.testing.assert_close(y, yr, **TOL[dtype])
     # the state is f32 on both sides from the same (rounded) inputs
     torch.testing.assert_close(fin, fr, **TOL[f32])
@@ -213,6 +243,13 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, b, c,
                  d, 32)
+    # a contiguous view one element into its storage: the kernel's
+    # 16-byte copies need aligned rows
+    xa = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(
+        x.shape)
+    assert xa.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan(xa, dt, a, b, c, d, 32)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

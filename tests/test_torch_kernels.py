@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
+from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
 
 # the JAX oracles compiled whole (one compile per shape is far cheaper
 # than eager op-by-op dispatch); the Pallas wrappers are jitted already
@@ -256,6 +257,32 @@ def test_decode_split_plan_covers_the_row(b, nkv, n_tokens, plan):
     assert (split_len, nsplit) == plan
     assert split_len % 64 == 0 and 1 <= nsplit <= DK.MAX_SPLITS
     assert (nsplit - 1) * split_len < n_tokens <= nsplit * split_len
+
+
+@pytest.mark.parametrize("bsz, S, H, P, N, dtype, plan", [
+    # the serving shape: 8 chunks of 256
+    (1, 2048, 32, 64, 128, torch.bfloat16, (256, 8)),
+    (1, 2048, 32, 64, 128, torch.float32, (64, 32)),    # f32: one tile
+    (1, 64, 2, 32, 16, torch.bfloat16, (64, 1)),        # one tile
+    (2, 96, 3, 32, 64, torch.bfloat16, (128, 1)),       # whole tiles
+    (2, 520, 3, 64, 128, torch.bfloat16, (256, 3)),     # a ragged last chunk
+    (2, 520, 3, 64, 128, torch.float32, (64, 9)),
+    (1, 200, 2, 16, 64, torch.bfloat16, (256, 1)),
+    (3, 4096, 2, 48, 16, torch.bfloat16, (256, 16)),
+])
+def test_ssd_plan_covers_the_sequence(bsz, S, H, P, N, dtype, plan):
+    """The SSD scan's state chunks and scratch come from shapes alone:
+    whole 64-token tiles, at most STATE_CHUNK, covering every token once;
+    one f32 state (P, N) and one log-decay per (row, chunk, head), and
+    the state before each chunk in the input dtype, in two bf16 parts."""
+    pl = SK.plan(bsz, S, H, P, N, dtype)
+    assert (pl.chunk, pl.n_chunks) == plan
+    assert pl.chunk % SK.TILE == 0 and pl.chunk <= SK.STATE_CHUNK[dtype]
+    assert (pl.n_chunks - 1) * pl.chunk < S <= pl.n_chunks * pl.chunk
+    assert pl.state_floats == bsz * pl.n_chunks * H * P * N
+    assert pl.decay_floats == bsz * pl.n_chunks * H
+    assert pl.prev_elems == (2 if dtype == torch.bfloat16 else 1) * (
+        pl.state_floats)
 
 
 @pytest.mark.parametrize("g, width", [(1, 1), (2, 2), (3, 4), (4, 4),

@@ -21,6 +21,14 @@ Phases (every failure raises and ends the run with a non-zero code):
   3b. model parity: mamba2-370m at full width and 2 layers in f32, a
      1000-token prompt padded to 2048 plus 4 teacher-forced decode steps,
      CPU against GPU;
+  3c. CUDA graphs: at full width and 2 layers in bf16, every call of a
+     captured step (llava dense decode and dense prefill with an image
+     and without, llava paged decode, mamba2 decode and 2048 prefill) is
+     also run eagerly on a copy of its caches and held bitwise against
+     the engine's call, a capture's warm-up or a replay; 5 requests
+     through 4 slots, so the steps cross page boundaries and a released
+     slot takes a new request (the paged engine also swaps one out and
+     in);
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -30,9 +38,11 @@ Phases (every failure raises and ends the run with a non-zero code):
      through submit + run_until_done, then run_continuous;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases.
 The kernel launch counters are set to 0 just before each serving run and
-read just after it; each run must have launched every kernel of its
-path. The last lines are a JSON object per kernel, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+read just after it (a CUDA-graph replay adds the launches its capture
+recorded); each run must have launched every kernel of its path and
+replayed its decode graph, and prints its captures and replays. The
+last lines are a JSON object per kernel, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 
 ``--phases`` runs a subset (``--phases 1,2``: build and kernel checks).
 """
@@ -612,6 +622,86 @@ def ssm_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: CUDA-graph replays against eager steps
+# ---------------------------------------------------------------------------
+
+def graph_parity(torch, dev):
+    """Every call of a captured step runs eagerly on a copy of the caches
+    too, and the two must agree bitwise (logits and every cache tensor,
+    ``graphs.held_to_eager``); counts the comparisons in which the
+    engine's call was a replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontend as FE
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import held_to_eager
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.steps import make_encode_fn
+
+    replays = {}
+    # (label, arch, max_len, engine options, prompt lengths, image)
+    cases = [("llava dense", "llava-next-mistral-7b", MAX_LEN, {},
+              (40, 20, 100, 64, 30), True),
+             ("llava paged", "llava-next-mistral-7b", MAX_LEN,
+              dict(paged=True, page_size=16, preemption=True),
+              (40, 20, 100, 64, 30), False),
+             ("mamba2", "mamba2-370m", SSM_MAX_LEN, {},
+              (64, 256, 1000, 1900, 500), False)]
+    for label, arch, max_len, opts, prompts, image in cases:
+        with held_to_eager() as counted:
+            base = get_config(arch)
+            cfg = dataclasses.replace(base, n_layers=2,
+                                      name=base.name + "-2layer")
+            params = init_params(cfg,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 device=dev, dtype=torch.bfloat16)
+            eng = Engine(cfg, params, max_batch=4, max_len=max_len,
+                         device=dev, **opts)
+            encode = make_encode_fn(cfg)
+            reqs = [Request(prompt_tokens=[(11 * i + 5 * j + 2) % cfg.vocab
+                                           for j in range(n)],
+                            max_new_tokens=5 if i == 1 else 24,
+                            mm_payload=(b"chip-smoke graphs"
+                                        if image and i < 2 else None),
+                            mm_tokens=IMAGE_TOKENS if image and i < 2 else 0,
+                            mm_pos=0)
+                    for i, n in enumerate(prompts)]
+            queue, step = list(reqs), 0
+            while queue or eng.n_active or eng.preempted:
+                while queue and eng.free_slots():
+                    r = queue.pop(0)
+                    kw = {}
+                    if r.mm_payload is not None:
+                        feats = FE.stub_embeddings(cfg, r.mm_payload,
+                                                   r.mm_tokens)
+                        kw = dict(mm_feats=encode(params, feats)[None],
+                                  mm_key=FE.content_hash(r.mm_payload))
+                    first, payload = eng.prefill_request(r, **kw)
+                    eng.insert(r, payload, first)
+                if eng.paged and step == 6:
+                    eng.preempt_slot(eng.slots.index(reqs[0]))
+                eng.decode_step()
+                step += 1
+            torch.cuda.synchronize()
+            assert all(len(r.output_tokens) == r.max_new_tokens
+                       for r in reqs), label
+            if eng.paged:
+                assert eng.preempt_count == 1 and eng.resume_count == 1
+                eng.assert_no_page_leaks()
+            census = eng.graph_census()
+            log(f"  {label}: {step} decode steps, every call bitwise equal "
+                f"to eager; graphs {census}")
+            del eng, params
+            torch.cuda.empty_cache()
+        replays.update({f"{label} {k}": n for k, n in counted.items()})
+    log(f"  replays compared bitwise: {replays}")
+    want = {"llava dense decode", "llava dense dense_prefill",
+            "llava paged decode", "mamba2 decode", "mamba2 dense_prefill"}
+    assert set(replays) == want, replays
+    return replays
+
+
+# ---------------------------------------------------------------------------
 # phases 4, 5, 4b: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -672,9 +762,11 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    graphs = cluster.graph_census()
     assert len(done) == len(reqs) and not cluster.report.lost, \
         f"{mode}: {len(done)}/{len(reqs)} completed"
     assert all(counts[k] > 0 for k in path), (mode, counts)
+    assert graphs["decode"]["replays"] > 0, f"{mode}: no decode replay"
     for r in reqs:
         assert len(r.output_tokens) == r.max_new_tokens, r.output_tokens
         assert all(0 <= t < cfg.vocab for t in r.output_tokens)
@@ -688,9 +780,11 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
         ttft_ms=[1e3 * r.ttft for r in reqs],
         tpot_ms=[1e3 * r.tpot for r in reqs],
         tokens_per_s=n_out / wall, wall_s=wall, n_out=n_out,
-        counts=counts, outputs=[list(r.output_tokens) for r in reqs])
+        counts=counts, graphs=graphs,
+        outputs=[list(r.output_tokens) for r in reqs])
     log(f"  {mode}: {len(done)}/{len(reqs)} completed in {wall:.2f} s; "
-        f"launches {counts}; MM store {cluster.store.stats}")
+        f"launches {counts}; CUDA graphs {graphs}; MM store "
+        f"{cluster.store.stats}")
     for r in reqs:
         log(f"    req {r.request_id} ({len(r.prompt_tokens)} text + "
             f"{r.mm_tokens} image tokens) -> {r.output_tokens}")
@@ -739,7 +833,7 @@ def ssd_dynamic_smem(torch, mangled):
         m.group(1) == "out_kernel"]
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "4", "5", "4b")
+ALL_PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "4b")
 
 
 def main() -> int:
@@ -802,6 +896,10 @@ def main() -> int:
         log("[3b] model parity, mamba2-370m full width, 2 layers, f32, "
             "CPU plain vs GPU ssd_scan")
         ssm_parity(torch, dev)
+    if "3c" in phases:
+        log("[3c] CUDA graphs: replay vs eager, bitwise, full width, 2 "
+            "layers, bf16")
+        graph_parity(torch, dev)
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
@@ -864,7 +962,9 @@ def main() -> int:
             f"(mean {statistics.mean(st['ttft_ms']):.2f}); TPOT ms "
             f"{[round(x, 3) for x in st['tpot_ms']]} (mean "
             f"{statistics.mean(st['tpot_ms']):.3f}); "
-            f"{st['tokens_per_s']:.2f} output tokens/s over {st['wall_s']:.2f} s")
+            f"{st['tokens_per_s']:.2f} output tokens/s over {st['wall_s']:.2f} s; "
+            f"{st['graphs']['captures']} captures, {st['graphs']['replays']} "
+            f"replays")
     log(f"[6] total {time.perf_counter() - t_start:.1f} s")
 
     rows = []

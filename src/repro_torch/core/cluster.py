@@ -50,6 +50,7 @@ from repro_torch.core.telemetry import (NULL_TRACER, LatencyAccountant,
 from repro_torch.models import frontend as FE
 from repro_torch.serving.encode_engine import EncodeEngine
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.graphs import census
 from repro_torch.serving.kv_pool import PoolExhausted
 from repro_torch.models.transformer import cache_tensors
 from repro_torch.serving.request import Request
@@ -244,6 +245,12 @@ class EPDCluster:
         # engine names and fed chunk-granular occupancy as chunks
         # actually execute, not callback estimates
         self.router: Optional[Router] = None
+
+    def graph_census(self) -> Dict[str, Any]:
+        """``graphs.census`` of the CUDA-graph steps of the prefill and
+        every decode engine: captures, replays and the graphs' nodes."""
+        engines = [self.prefill_engine, *self.decode_engines]
+        return census(s for e in engines for s in e.graph_steps())
 
     # ---- decode-instance topology ----
     @property

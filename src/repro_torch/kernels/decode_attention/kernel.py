@@ -15,13 +15,22 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 LAUNCHES = 0          # kernel launches since the last reset
+DEVICE_KERNELS = 1    # device kernels one launch issues
+# the device kernel, by parts of its mangled name (decode_common.cuh's
+# template over this source of K/V rows)
+SYMBOLS = (("19decode_split_kernelI", "7DenseKV"),)
 MAX_SPLITS = 16       # splits a row, which the last block to finish merges
 GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernel is built for
 MAX_GROUP = GROUPS[-1]
 
+COUNTERS = 1 << 16     # merge counters a stream holds: b * nkv of a launch
+
 # per (device, stream): int32 counters the last block of each (row, kv
 # head) uses to find itself; they start at 0 and the kernel resets them,
-# so they outlive every launch
+# so they outlive every launch. They are made once, at full size, while
+# the stream is not capturing: a CUDA graph captured over them keeps
+# their address, so they must neither be born in the graph's memory pool
+# nor be replaced while the graph lives.
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -55,21 +64,37 @@ def partial_floats(b: int, nkv: int, g: int, hd: int, nsplit: int) -> int:
 def launch_scratch(b: int, nkv: int, g: int, hd: int, n_tokens: int,
                    device: torch.device):
     """(split_len, nsplit, partials, counters) of one launch on
-    ``device``: the partials are one ``torch.empty``, the counters are
-    kept per stream; None, None for a launch of one split."""
+    ``device``: the partials are one ``torch.empty`` (inside a CUDA graph
+    capture it comes from the graph's pool), the counters are kept per
+    stream; None, None for a launch of one split."""
     split_len, nsplit = split_plan(
         b, nkv, n_tokens,
         torch.cuda.get_device_properties(device).multi_processor_count)
     n = partial_floats(b, nkv, g, hd, nsplit)
     if not n:
         return split_len, nsplit, None, None
+    B.require(b * nkv <= COUNTERS,
+              f"decode attention: {b} rows x {nkv} kv heads exceed the "
+              f"{COUNTERS} merge counters of a stream")
     part = torch.empty(n, dtype=torch.float32, device=device)
+    return split_len, nsplit, part, merge_counters(device)
+
+
+def merge_counters(device: torch.device) -> torch.Tensor:
+    """The merge counters of ``device``'s current stream, made at the
+    first launch on that stream. Raises when that launch is being
+    captured into a CUDA graph: run it once on the stream first (the
+    graph runner's warm-up does)."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     cnt = _counters.get(key)
-    if cnt is None or cnt.numel() < b * nkv:
-        cnt = _counters[key] = torch.zeros(b * nkv, dtype=torch.int32,
+    if cnt is None:
+        B.require(not torch.cuda.is_current_stream_capturing(),
+                  "decode attention: the merge counters of a stream must "
+                  "exist before a CUDA graph is captured on it; launch "
+                  "once on that stream first")
+        cnt = _counters[key] = torch.zeros(COUNTERS, dtype=torch.int32,
                                            device=device)
-    return split_len, nsplit, part, cnt
+    return cnt
 
 
 def ptr(t: Optional[torch.Tensor]) -> int:

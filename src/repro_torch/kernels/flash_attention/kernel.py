@@ -18,6 +18,9 @@ from repro_torch.kernels import _build as B
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES = 0          # kernel launches since the last reset
+DEVICE_KERNELS = 1    # device kernels one launch issues
+# the device kernels, by parts of their mangled names: bf16, f32
+SYMBOLS = (("15flash_tc_kernelI",), ("16flash_fwd_kernelI",))
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,

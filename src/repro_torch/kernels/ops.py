@@ -58,3 +58,26 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _WRAPPERS.values():
         mod.LAUNCHES = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (launches per wrapper) to the launch counts. A CUDA
+    graph replay launches the kernels its capture recorded without
+    calling their wrappers, so the graph runner adds them here."""
+    for name, n in counts.items():
+        _WRAPPERS[name].LAUNCHES += n
+
+
+def device_kernels() -> Dict[str, int]:
+    """Device kernels one launch of each wrapper issues."""
+    return {name: mod.DEVICE_KERNELS for name, mod in _WRAPPERS.items()}
+
+
+def wrapper_of(symbol: str) -> Optional[str]:
+    """The wrapper whose device kernel ``symbol`` (a mangled name, as the
+    CUDA driver gives it) is, or None for any other kernel."""
+    for name, mod in _WRAPPERS.items():
+        if any(all(part in symbol for part in parts)
+               for parts in mod.SYMBOLS):
+            return name
+    return None

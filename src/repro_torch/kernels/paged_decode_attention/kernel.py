@@ -20,6 +20,10 @@ from repro_torch.kernels.paged_decode_attention.ref import (
                                                             paged_decode_attention_ref)
 
 LAUNCHES = 0          # kernel launches since the last reset
+DEVICE_KERNELS = 1    # device kernels one launch issues
+# the device kernel, by parts of its mangled name (decode_common.cuh's
+# template over this source of K/V rows)
+SYMBOLS = (("19decode_split_kernelI", "7PagedKV"),)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,

@@ -21,6 +21,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 LAUNCHES = 0          # calls that launched the kernel since the last reset
 DEVICE_KERNELS = 3    # device kernels one call issues
+# the device kernels, by parts of their mangled names
+SYMBOLS = (("12state_kernelI",), ("12recur_kernelI",), ("10out_kernelI",))
 TILE = 64             # tokens per score tile of the kernel
 # tokens per state chunk, at most (a multiple of TILE): the output pass
 # holds a whole chunk's key tiles in shared memory, four in bf16, one in f32

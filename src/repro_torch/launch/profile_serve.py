@@ -5,16 +5,21 @@
 Builds llava-next-mistral-7b (or ``--arch``, e.g. ``mamba2-370m
 --max-len 2048``) in bf16 (random weights, seed 0) and serves the
 requests of ``launch/serve.py:smoke_requests`` once on a dense
-``EPDCluster`` to pay the first-call costs. Then, on a fresh cluster, it
-times each ``submit`` (Encode + Prefill + insert of one request) and
-``--steps`` decode steps with the host clock after a
+``EPDCluster`` to pay the first-call costs and capture the CUDA graphs
+of its decode step and dense prefills (with another image, so that the
+second pass encodes its image as a new request does). Then, on the same
+cluster, it times each ``submit`` (Encode + Prefill + insert of one
+request) and ``--steps`` decode steps with the host clock after a
 ``torch.cuda.synchronize()``, and traces the first submit (an image
 request where the model has a frontend) and the decode steps with
-``torch.profiler``. It
-prints, for each traced phase, the wall time, the device time summed over
-kernels and its share of the wall time (the device-busy share), the
-kernel launches, and the kernels that take the most device time. The
-Chrome traces go to ``--out`` (default ``chiprun_out/``).
+``torch.profiler``; both replay the graphs. It prints, for each traced
+phase, the wall time, the device time summed over kernels and its share
+of the wall time (the device-busy share), the kernel launches (a
+replayed graph's kernel nodes among them), the kernels that take the
+most device time, the graphs' census (``EPDCluster.graph_census``:
+kernel nodes, those of each wrapper's kernels, captures and replays) and
+the host time of the graph key a decode replay builds.
+The Chrome traces go to ``--out`` (default ``chiprun_out/``).
 """
 from __future__ import annotations
 
@@ -53,6 +58,26 @@ def report(label: str, prof, wall_ms: float, n_steps: int = 1) -> None:
               f"{e.count // n_steps:5d}x  {e.key[:90]}")
 
 
+def key_us(eng, n: int = 1000):
+    """(median host microseconds over ``n`` calls, state tensors) of what
+    a decode replay does before the replay itself: build the graph key
+    over the parameters, the caches and the tokens
+    (``graphs.graph_key``), check their device and read the state
+    tensors' ``data_ptr``."""
+    from repro_torch.kernels._build import is_plain
+    from repro_torch.serving.graphs import graph_key
+
+    tok = torch.zeros(eng.max_batch, dtype=torch.int32, device=eng.device)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, st, it = graph_key((eng.params, eng.caches), (tok,))
+        is_plain(*st, *it)
+        tuple(t.data_ptr() for t in st)
+        times.append(time.perf_counter() - t0)
+    return 1e6 * statistics.median(times), len(st)
+
+
 def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,15 +104,21 @@ def main() -> None:
                          device=dev, dtype=torch.bfloat16)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    warm = EPDCluster(cfg, params, max_batch=4, max_len=args.max_len,
-                      device=dev)
-    for r in smoke_requests(cfg):
-        warm.submit(r)
-    warm.run_until_done()
-    del warm
-
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=args.max_len,
                          device=dev)
+    for r in smoke_requests(cfg):
+        if r.mm_payload is not None:
+            r.mm_payload = b"profile_serve: the first pass's image"
+        cluster.submit(r)
+    cluster.run_until_done()
+    captured = cluster.graph_census()
+
+    # the first trace of a process starts the profiler's device tracing,
+    # which takes seconds: pay that here, not inside the traced submit
+    with profile(activities=acts):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+
     submit_ms = []
     prof_p = None
     for i, r in enumerate(smoke_requests(cfg)):
@@ -133,6 +164,12 @@ def main() -> None:
               f"{statistics.median(untraced):.3f})")
     report("prefill (first submit)", prof_p, submit_ms[0])
     report("decode steps", prof_d, sum(step_ms), len(step_ms))
+    census = cluster.graph_census()
+    print(f"CUDA graphs: {census} (captures in the timed pass: "
+          f"{census['captures'] - captured['captures']})")
+    us, n_state = key_us(eng)
+    print(f"graph key of a decode replay: {us:.2f} us host time (median), "
+          f"over {n_state} state tensors")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     prof_p.export_chrome_trace(str(out / "trace_prefill.json"))

@@ -84,6 +84,31 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     return caches
 
 
+def reset_caches(caches) -> None:
+    """Write back, in place, what ``make_caches`` puts in a fresh cache:
+    zeros, and -1 (empty slot) in every ``kv_pos``."""
+    for e in (*caches["attn"], *caches["ssm"]):
+        if e is not None:
+            for name, t in zip(e._fields, e):
+                t.fill_(-1 if name == "kv_pos" else 0)
+    caches["len"].zero_()
+    if caches.get("pages") is not None:
+        caches["pages"].zero_()
+
+
+def clone_caches(caches) -> Dict[str, Any]:
+    """A cache dict of copies of every tensor of ``caches``."""
+    def entry(e):
+        return None if e is None else type(e)(*(t.clone() for t in e))
+
+    out = dict(caches, attn=tuple(map(entry, caches["attn"])),
+               ssm=tuple(map(entry, caches["ssm"])),
+               len=caches["len"].clone())
+    if caches.get("pages") is not None:
+        out["pages"] = caches["pages"].clone()
+    return out
+
+
 def cache_tensors(caches) -> list:
     """Every tensor of a cache dict (the reference's ``jax.tree.leaves``)."""
     out = []

@@ -75,6 +75,7 @@ from repro_torch.core.telemetry import (NULL_TRACER, LatencyAccountant,
 from repro_torch.models import frontend as FE
 from repro_torch.models.transformer import make_caches
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.graphs import GraphStep, census
 from repro_torch.serving.kv_pool import (PagePool, PagedKVPayload, PoolExhausted,
                                          SwapHandle)
 from repro_torch.serving.prefix_cache import MatchResult, PrefixCache
@@ -430,6 +431,10 @@ class Engine:
             if prefix_cache:
                 raise ValueError("prefix_cache requires paged=True")
             self._prefill = make_prefill_fn(cfg)
+            # the batch-1 cache every dense prefill fills from scratch
+            # (the tensors its CUDA graph is captured over), made at the
+            # first prefill: a decode-only engine never holds one
+            self._prefill_caches = None
             self._insert = make_insert_fn(cfg)
             self.caches = make_caches(cfg, max_batch, max_len,
                                       dtype=self.cache_dtype,
@@ -579,6 +584,18 @@ class Engine:
             for rid, comp, amt, src in self._pending_notes:
                 self.accountant.note(rid, comp, amt, src)
         self._pending_notes.clear()
+
+    # -- compiled steps ------------------------------------------------------
+    def graph_steps(self) -> List[Tuple[str, GraphStep]]:
+        """This engine's CUDA-graph steps by name: the decode step and
+        the dense prefill."""
+        return [("decode", self._decode.graph),
+                ("prefill", self._prefill.graph)]
+
+    def graph_census(self) -> Dict[str, Any]:
+        """``graphs.census`` of this engine's CUDA-graph steps; all 0 on
+        the CPU."""
+        return census(self.graph_steps())
 
     # -- capacity ------------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -995,11 +1012,14 @@ class Engine:
         lengths = self._idx([n_tokens])
         if not self.paged:
             toks = np.pad(toks, ((0, 0), (0, pad)))
-            caches = make_caches(cfg, 1, self.max_len, dtype=self.cache_dtype,
-                                 device=self.device)
+            if self._prefill_caches is None:
+                self._prefill_caches = make_caches(
+                    cfg, 1, self.max_len, dtype=self.cache_dtype,
+                    device=self.device)
             logits, caches = self._prefill(self.params, self._idx(toks),
-                                           lengths, caches, mm_embeds,
-                                           enc_frames, mm_feats, mm_start)
+                                           lengths, self._prefill_caches,
+                                           mm_embeds, enc_frames, mm_feats,
+                                           mm_start)
             first = int(torch.argmax(logits[0]))
             self._count_prefill(n_tokens, n_tokens)
             return first, caches
@@ -1229,8 +1249,10 @@ class Engine:
             # after try_resume so a successful re-admission still
             # decodes this very step.)
             return []
-        # single device->host sync per step (not per slot)
-        lens = self.caches["len"].cpu().numpy()
+        # single device->host sync per step (not per slot); a copy,
+        # since the step advances "len" in place and on the CPU .cpu()
+        # is the tensor itself
+        lens = self.caches["len"].cpu().numpy().copy()
         if self.paged:
             self._grow_pages(lens)
         toks, self.caches = self._decode(

@@ -1,15 +1,26 @@
 """Per-instance step functions: encode / prefill / decode / insert / page
 movement.
 
-Same steps as ``repro/serving/steps.py``. PyTorch runs eagerly, so there
-is no ``jit``. Every step whose reference donates its cache argument
-(``donate_argnums``) writes the given cache or pool tensors IN PLACE here
-and returns the same tensors: the paged and suffix prefill (pool
-pages), decode (the cache views), the paged and dense insert (the
-destination cache), the cross-engine page copy, the swap-in scatter and
-the copy-on-write page copy. A caller keeps using its tensors after the
-call; one that needs the old contents (the swap-out gather) takes a copy
-first.
+Same steps as ``repro/serving/steps.py``. The reference compiles each
+step with ``jax.jit``; here the decode step (every cache layout) and the
+dense whole-prompt prefill go through a ``GraphStep``
+(``serving/graphs.py``), which captures them as CUDA graphs and replays
+them on CUDA tensors, and runs them eagerly on CPU tensors. The other
+steps run eagerly on either device: the paged whole-prompt prefill, the
+suffix/chunk prefill (its ``prefix_len`` and ``pos_base`` are Python
+ints that the attention code slices with), the inserts and the page
+movements. Sampling stays outside the graph.
+
+Every step whose reference donates its cache argument
+(``donate_argnums``) writes the given cache or pool tensors IN PLACE
+here and returns the same tensors: the paged and suffix prefill (pool
+pages), decode (the cache views and the lengths), the paged and dense
+insert (the destination cache), the cross-engine page copy, the swap-in
+scatter and the copy-on-write page copy. A caller keeps using its
+tensors after the call; one that needs the old contents (the swap-out
+gather) takes a copy first. The dense prefill donates nothing in the
+reference: it fills the cache it is given from scratch and returns
+copies, so a payload it returned survives the next prefill.
 """
 from __future__ import annotations
 
@@ -17,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import decode_forward, prefill_forward
+from repro_torch.models.transformer import clone_caches, reset_caches
+from repro_torch.serving.graphs import GraphStep
 from repro_torch.serving.sampling import sample
 
 
@@ -28,20 +41,32 @@ def _pairs(dst_entries, src_entries):
             yield from zip(d, s)
 
 
+def _len_in_place(caches, new):
+    """Write a step's new lengths into ``caches["len"]`` and hand back
+    ``new`` over that tensor: a CUDA graph reads and writes only the
+    tensors it was captured over."""
+    caches["len"].copy_(new["len"])
+    new["len"] = caches["len"]
+    return new
+
+
 def make_prefill_fn(cfg: ModelConfig, prefix: bool = False):
     """Prefill step.
 
-    Dense: fills the fresh batch-1 cache it is given. Paged: ``caches``
-    holds the engine's pool under "attn" (written in place by the page
-    scatter; the reference donates it), a fresh batch-1 side state for
-    "ssm"/"cross"/"len", and the request's staging block-table row under
-    "pages".
+    Dense: fills the batch-1 cache it is given from scratch (the same
+    cache every call, which a CUDA graph is captured over) and returns
+    (logits, caches) as copies. Paged: ``caches`` holds the engine's pool
+    under "attn" (written in place by the page scatter; the reference
+    donates it), a fresh batch-1 side state for "ssm"/"cross"/"len", and
+    the request's staging block-table row under "pages"; it runs
+    eagerly.
 
     prefix=True is the SUFFIX variant over that paged dict: ``tokens``
     holds only the uncached tail of the prompt (from the page-aligned
     ``pos_base``; entries before ``prefix_len`` are dummies) and the
     block-table row already maps the shared prefix pages. The same step
     is the CHUNK step of chunked prefill (``lengths`` = the chunk's end).
+    It runs eagerly.
     """
     if prefix:
         def prefill_suffix_fn(params, tokens, lengths, caches, prefix_len,
@@ -53,15 +78,33 @@ def make_prefill_fn(cfg: ModelConfig, prefix: bool = False):
 
         return prefill_suffix_fn
 
+    def dense_prefill(params, caches, tokens, lengths, mm_embeds, mm_feats,
+                      mm_start):
+        reset_caches(caches)
+        logits, new = prefill_forward(params, cfg, tokens, caches,
+                                      lengths=lengths, mm_embeds=mm_embeds,
+                                      mm_feats=mm_feats, mm_start=mm_start)
+        return logits, _len_in_place(caches, new)
+
+    graph = GraphStep(dense_prefill)
+
     def prefill_fn(params, tokens, lengths, caches, mm_embeds=None,
                    enc_frames=None, mm_feats=None, mm_start=None):
         if enc_frames is not None:
             raise NotImplementedError(
                 "encoder-decoder prefill not ported yet (see ROADMAP.md)")
-        return prefill_forward(params, cfg, tokens, caches, lengths=lengths,
-                               mm_embeds=mm_embeds, mm_feats=mm_feats,
-                               mm_start=mm_start)
+        if caches.get("pages") is not None:
+            return prefill_forward(params, cfg, tokens, caches,
+                                   lengths=lengths, mm_embeds=mm_embeds,
+                                   mm_feats=mm_feats, mm_start=mm_start)
+        if mm_start is not None:       # a device value, as jit traces it
+            mm_start = torch.as_tensor(mm_start, dtype=torch.int32,
+                                       device=tokens.device)
+        logits, new = graph((params, caches), tokens, lengths, mm_embeds,
+                            mm_feats, mm_start)
+        return logits.clone(), clone_caches(new)
 
+    prefill_fn.graph = graph
     return prefill_fn
 
 
@@ -79,13 +122,21 @@ def make_encode_fn(cfg: ModelConfig):
 
 
 def make_decode_fn(cfg: ModelConfig, temperature: float = 0.0):
-    """Decode step: writes the new token's KV into ``caches`` in place and
-    returns (next tokens (B,) int32, the updated cache dict)."""
+    """Decode step: writes the new token's KV into ``caches`` and advances
+    ``caches["len"]``, both in place, and returns (next tokens (B,)
+    int32, the cache dict over the same tensors)."""
+
+    def decode(params, caches, tokens):
+        logits, new = decode_forward(params, cfg, tokens, caches)
+        return logits, _len_in_place(caches, new)
+
+    graph = GraphStep(decode)
 
     def decode_fn(params, tokens, caches, generator=None):
-        logits, new_caches = decode_forward(params, cfg, tokens, caches)
-        return sample(logits, generator, temperature), new_caches
+        logits, new = graph((params, caches), tokens)
+        return sample(logits, generator, temperature), new
 
+    decode_fn.graph = graph
     return decode_fn
 
 

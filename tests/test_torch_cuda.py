@@ -15,8 +15,14 @@ the SSD scan the cases of ``tests/test_torch_ssm.py`` plus a padded tail
 that are no multiple of its 64-token tile, state chunks of 64 and 128,
 every state dim at every head-dim slice, strong decay, an initial state
 and the serving shape. The other serving shapes are checked by
-``chip_smoke.py``.
+``chip_smoke.py``. The CUDA-graph steps (``serving/graphs.py``) on small
+engines: every replay equals the eager step on a copy of the caches
+bitwise, a held dense-prefill payload survives later replays, replays
+count their launches, a replay over reallocated state raises, and the
+decode kernels' merge counters exist before the first capture.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,6 +40,14 @@ from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as SSD  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import frontend as FE  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.models.transformer import cache_tensors, clone_caches  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.graphs import GraphStep, held_to_eager  # noqa: E402
+from repro_torch.serving.request import Request  # noqa: E402
+from repro_torch.serving.steps import make_encode_fn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -473,3 +487,183 @@ def test_decode_wrappers_reject_what_the_kernels_do_not_take(dev):
         pool.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         paged_decode_attention(args[0], args[1], pb, *args[3:])
+
+
+# -- CUDA-graph steps -----------------------------------------------------
+
+def _graph_engine(dev, kind, dtype):
+    """A small engine of two slots on the card: reduced llava (dense, or
+    paged on pages of 16 with preemption) or mamba2 with the kernel's
+    state dim 64."""
+    if kind == "mamba2":
+        cfg = get_config("mamba2-370m").reduced()
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               state_dim=64))
+    else:
+        cfg = get_config("llava-next-mistral-7b").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=dtype)
+    opts = (dict(paged=True, page_size=16, preemption=True)
+            if kind == "paged" else {})
+    return Engine(cfg, params, max_batch=2, max_len=64, device=dev, **opts)
+
+
+def _prefill(eng, req):
+    if req.mm_payload is None:
+        return eng.prefill_request(req)
+    feats = FE.stub_embeddings(eng.cfg, req.mm_payload, req.mm_tokens)
+    return eng.prefill_request(
+        req, mm_feats=make_encode_fn(eng.cfg)(eng.params, feats)[None],
+        mm_key=FE.content_hash(req.mm_payload))
+
+
+def _requests(eng, image):
+    """Three requests through two slots: the second ends first and its
+    slot takes the third; lengths cross the 16-token pages."""
+    n_img = eng.cfg.frontend.tokens_per_item if image else 0
+    out = []
+    for i, (n, new) in enumerate([(9, 20), (5, 4), (12, 8)]):
+        out.append(Request(
+            prompt_tokens=[(7 * i + 3 * j + 1) % eng.cfg.vocab
+                           for j in range(n)], max_new_tokens=new,
+            mm_payload=b"graph-test image" if image and i < 2 else None,
+            mm_tokens=n_img if image and i < 2 else 0, mm_pos=2))
+    return out
+
+
+def _serve(eng, reqs, preempt_at=None):
+    queue = list(reqs)
+    step = 0
+    while queue or any(s is not None for s in eng.slots) or eng.preempted:
+        while queue and eng.free_slots():
+            r = queue.pop(0)
+            first, payload = _prefill(eng, r)
+            eng.insert(r, payload, first)
+        if step == preempt_at:
+            eng.preempt_slot(eng.slots.index(reqs[0]))
+        eng.decode_step()
+        step += 1
+        assert step < 200
+    assert [len(r.output_tokens) for r in reqs] == [r.max_new_tokens
+                                                     for r in reqs]
+
+
+@pytest.fixture
+def replay_checks():
+    """Run every graph step also eagerly on a copy of its caches, before
+    the real call, and hold the two bitwise (``graphs.held_to_eager``);
+    counts the comparisons in which the real call was a replay, per
+    step."""
+    with held_to_eager() as replays:
+        yield replays
+
+
+@pytest.mark.parametrize("kind,steps", [
+    ("dense", {"decode", "dense_prefill"}),
+    ("paged", {"decode"}),
+    ("mamba2", {"decode", "dense_prefill"}),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_graph_replay_equals_eager_bitwise(dev, replay_checks, kind, steps,
+                                          dtype):
+    """Each captured step (dense, paged and mamba2 decode; llava dense
+    prefill with an image and without; mamba2 prefill) replays to what
+    the eager step computes, bitwise, across page boundaries, a released
+    and re-inserted slot and, on the paged engine, a swap-out and in."""
+    eng = _graph_engine(dev, kind, dtype)
+    _serve(eng, _requests(eng, image=kind == "dense"),
+           preempt_at=3 if kind == "paged" else None)
+    assert set(replay_checks) == steps and min(replay_checks.values()) >= 1
+    assert replay_checks["decode"] >= 15
+    if kind == "paged":
+        assert eng.preempt_count == 1 and eng.resume_count == 1
+        eng.assert_no_page_leaks()
+
+
+@pytest.mark.parametrize("kind", ["dense", "mamba2"])
+def test_held_dense_prefill_payload_survives_replays(dev, kind):
+    eng = _graph_engine(dev, kind, torch.bfloat16)
+    reqs = _requests(eng, image=False)
+    f0, p0 = eng.prefill_request(reqs[0])
+    held = clone_caches(p0)
+    for r in reqs[1:]:
+        eng.prefill_request(r)
+    assert eng._prefill.graph.replays == 2
+    for a, b in zip(cache_tensors(p0), cache_tensors(held)):
+        assert torch.equal(a, b)
+    eng.insert(reqs[0], p0, f0)
+    while eng.n_active:
+        eng.decode_step()
+    fresh = _graph_engine(dev, kind, torch.bfloat16)
+    alone = _requests(fresh, image=False)[0]
+    f, p = fresh.prefill_request(alone)
+    fresh.insert(alone, p, f)
+    while fresh.n_active:
+        fresh.decode_step()
+    assert reqs[0].output_tokens == alone.output_tokens
+
+
+def test_launch_counts_after_replays(dev):
+    """N replays count what N eager calls count: one flash launch a layer
+    a prefill, one decode launch a layer a step."""
+    eng = _graph_engine(dev, "dense", torch.bfloat16)
+    reqs = _requests(eng, image=False)
+    ops.reset_launch_counts()
+    for r in reqs:
+        eng.run_request(r)
+    torch.cuda.synchronize()
+    n_layers = eng.cfg.n_layers
+    steps = sum(r.max_new_tokens - 1 for r in reqs)
+    census = eng.graph_census()
+    assert census["decode"]["replays"] == steps - 1
+    assert census["prefill"]["replays"] == len(reqs) - 1
+    assert ops.launch_counts() == {
+        "flash_attention": n_layers * len(reqs),
+        "decode_attention": n_layers * steps,
+        "paged_decode_attention": 0, "ssd_scan": 0}
+    # one graph each; our kernel is one node a layer among many, named
+    # in the graph by its device function
+    assert census["prefill"]["flash_attention nodes"] == n_layers
+    assert census["decode"]["decode_attention nodes"] == n_layers
+    for step in ("prefill", "decode"):
+        c = census[step]
+        assert c["graphs"] == 1 and c["kernel_nodes"] > n_layers
+        assert sum(v for k, v in c.items() if k.endswith(" nodes")) \
+            == n_layers
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_replay_over_reallocated_state_raises(dev, kind):
+    eng = _graph_engine(dev, kind, torch.bfloat16)
+    r = _requests(eng, image=False)[0]
+    first, payload = eng.prefill_request(r)
+    eng.insert(r, payload, first)
+    eng.decode_step()                  # capture
+    eng.decode_step()                  # replay
+    eng.caches["len"] = eng.caches["len"].clone()
+    with pytest.raises(RuntimeError, match="reallocated"):
+        eng.decode_step()
+
+
+def test_merge_counters_exist_before_the_first_capture(dev):
+    """The runner's warm-up launches the decode kernel on its own stream
+    before it captures there, so the counters are made outside the
+    capture; a capture that would make them raises."""
+    args = _dense_inputs(dev, torch.bfloat16, 1500, 8, 2, 64,
+                         _prefix_rows(1500, [1500, 900]), [1499, 899])
+    assert DK.split_plan(2, 2, 1500, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[1] > 1
+    step = GraphStep(lambda k, v, qp, kp, q: decode_attention(q, k, v, qp,
+                                                              kp))
+    first = step(args[1:], args[0])
+    key = (dev.index or 0, step._stream.cuda_stream)
+    assert key in DK._counters and step.captures == 1
+    counters = DK._counters[key]
+    again = step(args[1:], args[0])
+    assert torch.equal(first, again) and step.replays == 1
+    assert DK._counters[key] is counters
+    assert not torch.any(counters)
+    fresh = torch.cuda.Stream(dev)
+    with pytest.raises(ValueError, match="before a CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            decode_attention(*args)

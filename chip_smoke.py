@@ -14,16 +14,23 @@ Phases (every failure raises and ends the run with a non-zero code):
      version's time, a PyTorch call that computes the same function
      where one exists (a yardstick only, timed both ways) and its bound;
      flash is timed at the dense prefill and at the 512-token chunk over
-     a gathered prefix that most of its serving launches take;
+     a gathered prefix that most of its serving launches take; the decode
+     pair also on K/V stored in float8_e4m3fn (an fp8 cache or pool, read
+     as it is) under bf16 and f32 queries, a row without keys giving 0,
+     timed with a bound of one byte a K/V element and, as its yardstick,
+     the cache widened to bf16 plus SDPA;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
-     the CPU (plain versions) and on the GPU (kernels), dense and paged;
+     the CPU (plain versions) and on the GPU (kernels), dense and paged,
+     with f32 caches and with fp8 (float8_e4m3fn) K/V (the GPU's decode
+     steps then read the CPU prefill's fp8 bytes);
   3b. model parity: mamba2-370m at full width and 2 layers in f32, a
      1000-token prompt padded to 2048 plus 4 teacher-forced decode steps,
      CPU against GPU;
   3c. CUDA graphs: at full width and 2 layers in bf16, every call of a
      captured step (llava dense decode and dense prefill with an image
-     and without, llava paged decode, mamba2 decode and 2048 prefill) is
+     and without, llava paged decode, each also over fp8 K/V, mamba2
+     decode and 2048 prefill) is
      also run eagerly on a copy of its caches and held bitwise against
      the engine's call, a capture's warm-up or a replay; 5 requests
      through 4 slots, so the steps cross page boundaries and a released
@@ -33,6 +40,9 @@ Phases (every failure raises and ends the run with a non-zero code):
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
      cluster with prefix cache and chunked prefill;
+  5f. serve, paged fp8: phase 5 with the cluster's engines rebuilt to
+     store K/V in float8_e4m3fn (``launch/serve.py --kv-fp8``): flash
+     prefills over the widened pool, paged decode reads the fp8 pool;
   4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
      layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
      through submit + run_until_done, then run_continuous;
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -93,6 +104,15 @@ SSD_STATE_TOL = TOL["float32"]
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def release(torch) -> None:
+    """Free what a finished phase or timing held: engines keep their CUDA
+    graphs in reference cycles, so collect them, then return the cached
+    memory. A timed run then starts from the same state whatever ran
+    before it, instead of destroying earlier graphs inside its own time."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(torch, fn, n: int = 25, warmup: int = 3) -> float:
@@ -213,7 +233,7 @@ def timing(torch, first, make, kernel, plain, library, nbytes, flops,
         r.update(library_ms=device_ms(torch, library, largs),
                  library_call_ms=time_ms(torch, lambda: library(*largs[0])))
     del sets, kargs
-    torch.cuda.empty_cache()
+    release(torch)
     return r
 
 
@@ -237,7 +257,9 @@ def check_kernels(torch, dev):
         paged_decode_attention)
     from repro_torch.kernels.paged_decode_attention.ref import (
         paged_decode_attention_ref)
+    from repro_torch.models.layers import to_kv
 
+    f8 = torch.float8_e4m3fn
     gen = torch.Generator(device=dev).manual_seed(1234)
     nq, nkv, hd = 32, 8, 128
     lens = [2960, 3000, 100, 64]          # two VLM prompts, two text ones
@@ -246,12 +268,29 @@ def check_kernels(torch, dev):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def compare(name, label, dtype, out, ref):
+    def kv_randn(shape, dtype, kv):
+        """K/V in ``dtype``, or stored in ``kv`` (fp8) as the caches
+        store them (models/layers.py to_kv)."""
+        return (randn(shape, dtype) if kv is None
+                else to_kv(randn(shape, torch.float32), kv))
+
+    def compare(name, label, dtype, out, ref, empty=()):
+        """``out`` within TOL of ``ref``; rows ``empty`` (no valid key)
+        must be 0 in the kernel (the plain versions give the mean of V
+        there) and are left out of the comparison."""
+        zero = True
+        if empty:
+            zero = bool((out[list(empty)] == 0).all())
+            rows = [i for i in range(out.shape[0]) if i not in empty]
+            out, ref = out[rows], ref[rows]
         err = (out.float() - ref.float()).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
         log(f"  {name} [{label}] {dtype}: max_abs_err={err:.3e} "
-            f"tol={TOL[dtype]} {'ok' if ok else 'FAIL'}")
-        assert ok and torch.isfinite(out.float()).all(), (name, label, err)
+            f"tol={TOL[dtype]}"
+            + (f", rows {list(empty)} without keys 0: {zero}" if empty
+               else "") + f" {'ok' if ok and zero else 'FAIL'}")
+        assert ok and zero and torch.isfinite(out.float()).all(), (
+            name, label, err)
         return err
 
     # -- flash: engine prefill (pad to max_len), suffix chunk, window, cross
@@ -323,12 +362,12 @@ def check_kernels(torch, dev):
     results["flash_attention"]["chunk"] = chunk
 
     # -- dense decode: 4 slots of a 3072 ring buffer, ragged lengths
-    def decode_case(dtype, lengths, window=None):
+    def decode_case(dtype, lengths, window=None, kv=None):
         dt = getattr(torch, dtype)
         b = len(lengths)
         q = randn((b, nq, hd), dt)
-        k = randn((b, MAX_LEN, nkv, hd), dt)
-        v = randn((b, MAX_LEN, nkv, hd), dt)
+        k = kv_randn((b, MAX_LEN, nkv, hd), dt, kv)
+        v = kv_randn((b, MAX_LEN, nkv, hd), dt, kv)
         t = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)[None]
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kpos = torch.where(t < ln[:, None], t, torch.full_like(t, -1))
@@ -346,8 +385,8 @@ def check_kernels(torch, dev):
                       decode_attention_ref(q, k, v, qp, kp, window=w))
         if dtype == "bfloat16":
             errs.append(err)
-    def decode_set():
-        q, k, v, qp, kp, _ = decode_case("bfloat16", lens)
+    def decode_set(kv=None):
+        q, k, v, qp, kp, _ = decode_case("bfloat16", lens, kv=kv)
         kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
         return (q, k, v, qp, kp), (q[:, :, None], kt, vt,
                                    (kp >= 0)[:, None, None])
@@ -366,13 +405,13 @@ def check_kernels(torch, dev):
     # -- paged decode: page 16, 192 pages a slot, scattered pages
     page, max_pages = 16, MAX_LEN // 16
 
-    def paged_case(dtype, lengths, window=None):
+    def paged_case(dtype, lengths, window=None, kv=None):
         dt = getattr(torch, dtype)
         b = len(lengths)
         n_pages = 1 + b * max_pages
         q = randn((b, nq, hd), dt)
-        kp_ = randn((n_pages, page, nkv, hd), dt)
-        vp_ = randn((n_pages, page, nkv, hd), dt)
+        kp_ = kv_randn((n_pages, page, nkv, hd), dt, kv)
+        vp_ = kv_randn((n_pages, page, nkv, hd), dt, kv)
         perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
         tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
         off = 0
@@ -397,8 +436,8 @@ def check_kernels(torch, dev):
             errs.append(err)
     # yardstick: SDPA over the same KV laid out densely beforehand (no
     # single PyTorch call reads a paged pool; the gather is not timed)
-    def paged_set():
-        q, kpool, vpool, tbl, ln, _ = paged_case("bfloat16", lens)
+    def paged_set(kv=None):
+        q, kpool, vpool, tbl, ln, _ = paged_case("bfloat16", lens, kv=kv)
         kd, vd = (x[tbl.long()].reshape(len(lens), -1, nkv, hd)
                   .transpose(1, 2).contiguous() for x in (kpool, vpool))
         t = torch.arange(kd.shape[2], device=dev)[None]
@@ -418,6 +457,64 @@ def check_kernels(torch, dev):
                        f"hd{hd} bf16, lengths {lens}"))
     for name, r in results.items():
         log_timing(name, r)
+
+    # -- the decode pair on fp8 K/V (float8_e4m3fn, read as it is): the
+    # cases above, and a row / slot without keys, which gives 0
+    no_keys = [2960, 0, 100, 64]
+    fp8 = {"decode_attention": [], "paged_decode_attention": []}
+    for label, dtype, lengths, win in [
+            ("fp8 K/V, b4 S3072 ragged", "bfloat16", lens, None),
+            ("fp8 K/V, b4 S3072 ragged", "float32", lens, None),
+            ("fp8 K/V, b4 S3072 window 512", "bfloat16", lens, 512),
+            ("fp8 K/V, b4 S3072 full + 1", "float32", [MAX_LEN, 1, 17, 2049],
+             None),
+            ("fp8 K/V, b4 S3072 row 1 without keys", "bfloat16", no_keys,
+             None)]:
+        q, k, v, qp, kp, w = decode_case(dtype, lengths, win, kv=f8)
+        err = compare("decode_attention", label, dtype,
+                      decode_attention(q, k, v, qp, kp, window=w),
+                      decode_attention_ref(q, k, v, qp, kp, window=w),
+                      empty=[i for i, n in enumerate(lengths) if n == 0])
+        fp8["decode_attention"].append((dtype, err))
+    for label, dtype, lengths, win in [
+            ("fp8 K/V, b4 page16 ragged", "bfloat16", lens, None),
+            ("fp8 K/V, b4 page16 ragged", "float32", lens, None),
+            ("fp8 K/V, b4 page16 window 300", "bfloat16", lens, 300),
+            ("fp8 K/V, b4 page boundaries", "float32", [16, 32, MAX_LEN, 1],
+             None),
+            ("fp8 K/V, b4 slot 1 without keys", "bfloat16", no_keys, None)]:
+        args = paged_case(dtype, lengths, win, kv=f8)
+        err = compare("paged_decode_attention", label, dtype,
+                      paged_decode_attention(*args[:5], window=args[5]),
+                      paged_decode_attention_ref(*args[:5], window=args[5]),
+                      empty=[i for i, n in enumerate(lengths) if n == 0])
+        fp8["paged_decode_attention"].append((dtype, err))
+
+    def widened_sdpa(q, k, v, mask):
+        """The yardstick of an fp8 cache: widened to bf16, then SDPA,
+        timed as one function."""
+        return sdpa(q, k.to(torch.bfloat16), v.to(torch.bfloat16), mask)
+
+    # bound: one byte a K/V element (q and out bf16, positions int32)
+    b = len(lens)
+    nbytes = (2 * n_tok * nkv * hd + 2 * 2 * b * nq * hd
+              + 4 * b * (MAX_LEN + 1))
+    dense8 = timing(torch, decode_set(f8), lambda: decode_set(f8),
+                    decode_attention, decode_attention_ref, widened_sdpa,
+                    nbytes, 4 * hd * nq * n_tok,
+                    shape=f"b4 S{MAX_LEN} nq{nq} nkv{nkv} hd{hd} bf16 q, "
+                          f"fp8 K/V, lengths {lens}")
+    nbytes = 2 * n_tok * nkv * hd + 2 * 2 * b * nq * hd + 4 * (n_pg + b)
+    paged8 = timing(torch, paged_set(f8), lambda: paged_set(f8),
+                    paged_decode_attention, paged_decode_attention_ref,
+                    widened_sdpa, nbytes, 4 * hd * nq * n_tok,
+                    shape=f"b4 page{page} max_pages{max_pages} nq{nq} "
+                          f"nkv{nkv} hd{hd} bf16 q, fp8 K/V, lengths {lens}")
+    for name, r in (("decode_attention", dense8),
+                    ("paged_decode_attention", paged8)):
+        r["max_abs_err"] = max(e for d, e in fp8[name] if d == "bfloat16")
+        log_timing(f"{name} fp8", r)
+        results[name]["fp8"] = r
     return results
 
 
@@ -510,10 +607,12 @@ def model_parity(torch, dev):
     from repro_torch.models import frontend as FE
     from repro_torch.models.model import decode_forward, prefill_forward
     from repro_torch.models.params import init_params, map_tree
-    from repro_torch.models.transformer import make_caches
+    from repro_torch.models.transformer import (cache_tensors, clone_caches,
+                                                make_caches)
 
     base = get_config("llava-next-mistral-7b")
     cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
+    f8 = torch.float8_e4m3fn
     params_cpu = init_params(cfg, torch.Generator().manual_seed(7),
                              device="cpu", dtype=torch.float32)
     params_gpu = map_tree(lambda t: t.to(dev), params_cpu)
@@ -526,13 +625,16 @@ def model_parity(torch, dev):
     patches = FE.stub_embeddings(cfg, b"chip-smoke-image", IMAGE_TOKENS)
     forced = [5, 17, 42, 99]
 
-    def run(params, device, layout):
+    def run(params, device, layout, kv_dtype, prefilled=None):
+        """Logits of the prefill and the forced decode steps, and the
+        caches as the prefill left them. ``prefilled``: caches whose fp8
+        K/V the decode steps read instead of this prefill's own."""
         feats = (patches.to(device) @ params["projector"]).float()[None]
         kw = {}
         if layout == "paged":
             kw = dict(layout="paged", page_size=16, n_pages=1 + MAX_LEN // 16)
         caches = make_caches(cfg, 1, MAX_LEN, dtype=torch.float32,
-                             device=device, **kw)
+                             kv_dtype=kv_dtype, device=device, **kw)
         if layout == "paged":
             caches["pages"][0] = torch.arange(1, 1 + MAX_LEN // 16,
                                               dtype=torch.int32)
@@ -541,18 +643,38 @@ def model_parity(torch, dev):
             lengths=torch.tensor([n], dtype=torch.int32, device=device),
             mm_feats=feats, mm_start=mm_pos)
         out = [logits.cpu()]
+        after = clone_caches(caches)
+        if prefilled is not None:
+            n_diff = 0
+            for mine, theirs in zip(cache_tensors(caches),
+                                    cache_tensors(prefilled)):
+                if mine.dtype == f8:
+                    theirs = theirs.to(device)
+                    n_diff += int((mine.view(torch.uint8)
+                                   != theirs.view(torch.uint8)).sum())
+                    mine.copy_(theirs)
+            log(f"    {n_diff} of the fp8 K/V bytes of the two prefills "
+                f"differ (f32 K/V on the two sides of an e4m3 rounding "
+                f"boundary); the GPU decodes over the CPU's")
         for t in forced:
             logits, caches = decode_forward(
                 params, cfg, torch.tensor([t], dtype=torch.int32,
                                           device=device), caches)
             out.append(logits.cpu())
-        return out
+        return out, after
 
-    for layout in ("dense", "paged"):
+    # f32 caches, then K/V stored in fp8 (the decode kernels read them
+    # as they are; flash gets the unrounded prefill K/V). The two
+    # prefills' fp8 bytes differ wherever the CPU's and the GPU's f32 K/V
+    # straddle a rounding boundary, so with fp8 the GPU's decode steps
+    # read the CPU prefill's cache: both sides decode over the same bytes
+    for layout, kv_dtype in (("dense", None), ("paged", None),
+                             ("dense fp8", f8), ("paged fp8", f8)):
         t0 = time.perf_counter()
-        ref = run(params_cpu, "cpu", layout)
+        ref, prefilled = run(params_cpu, "cpu", layout.split()[0], kv_dtype)
         t1 = time.perf_counter()
-        got = run(params_gpu, dev, layout)
+        got, _ = run(params_gpu, dev, layout.split()[0], kv_dtype,
+                     prefilled if kv_dtype == f8 else None)
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(got, ref)):
             err = (a - b).abs().max().item()
@@ -563,7 +685,7 @@ def model_parity(torch, dev):
         log(f"  {layout}: cpu {t1 - t0:.1f} s, gpu "
             f"{time.perf_counter() - t1:.1f} s")
     del params_gpu
-    torch.cuda.empty_cache()
+    release(torch)
 
 
 def ssm_parity(torch, dev):
@@ -618,7 +740,7 @@ def ssm_parity(torch, dev):
     log(f"  cpu {t1 - t0:.1f} s, gpu {time.perf_counter() - t1:.1f} s, "
         f"{launches} ssd_scan launches")
     del params_gpu
-    torch.cuda.empty_cache()
+    release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -639,11 +761,17 @@ def graph_parity(torch, dev):
     from repro_torch.serving.steps import make_encode_fn
 
     replays = {}
+    f8 = dict(kv_dtype=torch.float8_e4m3fn)
     # (label, arch, max_len, engine options, prompt lengths, image)
     cases = [("llava dense", "llava-next-mistral-7b", MAX_LEN, {},
               (40, 20, 100, 64, 30), True),
              ("llava paged", "llava-next-mistral-7b", MAX_LEN,
               dict(paged=True, page_size=16, preemption=True),
+              (40, 20, 100, 64, 30), False),
+             ("llava dense fp8", "llava-next-mistral-7b", MAX_LEN, f8,
+              (40, 20, 100, 64, 30), True),
+             ("llava paged fp8", "llava-next-mistral-7b", MAX_LEN,
+              dict(paged=True, page_size=16, preemption=True, **f8),
               (40, 20, 100, 64, 30), False),
              ("mamba2", "mamba2-370m", SSM_MAX_LEN, {},
               (64, 256, 1000, 1900, 500), False)]
@@ -692,11 +820,13 @@ def graph_parity(torch, dev):
             log(f"  {label}: {step} decode steps, every call bitwise equal "
                 f"to eager; graphs {census}")
             del eng, params
-            torch.cuda.empty_cache()
+            release(torch)
         replays.update({f"{label} {k}": n for k, n in counted.items()})
     log(f"  replays compared bitwise: {replays}")
     want = {"llava dense decode", "llava dense dense_prefill",
-            "llava paged decode", "mamba2 decode", "mamba2 dense_prefill"}
+            "llava paged decode", "llava dense fp8 decode",
+            "llava dense fp8 dense_prefill", "llava paged fp8 decode",
+            "mamba2 decode", "mamba2 dense_prefill"}
     assert set(replays) == want, replays
     return replays
 
@@ -737,15 +867,27 @@ def ssm_requests(cfg):
 
 
 def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
-          **kw):
+          kv_dtype=None, **kw):
     """Serve ``reqs`` on a fresh EPDCluster with the launch counters set
     to 0 just before and read just after; every kernel in ``path`` must
-    have launched."""
+    have launched. ``kv_dtype``: the cluster's engines rebuilt to store
+    K/V in it, as ``launch/serve.py --kv-fp8`` does."""
     from repro_torch.core.cluster import EPDCluster
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import with_kv_dtype
 
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=max_len,
                          device=dev, **kw)
+    if kv_dtype is not None:
+        with_kv_dtype(cluster, params, kv_dtype)
+    engines = [cluster.prefill_engine, *cluster.decode_engines]
+    want = kv_dtype or params["embed"].dtype
+    assert all(c.k.dtype == want for e in engines for c in e.caches["attn"]
+               if c is not None), mode
+    # the decode pool's K/V bytes (paged) or the decode cache's (dense)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for e in cluster.decode_engine.caches["attn"]
+                   if e is not None for t in e[:2])
     for eng in cluster.decode_engines:
         instrument(torch, eng)
     torch.cuda.synchronize()
@@ -780,16 +922,16 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
         ttft_ms=[1e3 * r.ttft for r in reqs],
         tpot_ms=[1e3 * r.tpot for r in reqs],
         tokens_per_s=n_out / wall, wall_s=wall, n_out=n_out,
-        counts=counts, graphs=graphs,
+        counts=counts, graphs=graphs, kv_bytes=kv_bytes,
         outputs=[list(r.output_tokens) for r in reqs])
     log(f"  {mode}: {len(done)}/{len(reqs)} completed in {wall:.2f} s; "
         f"launches {counts}; CUDA graphs {graphs}; MM store "
-        f"{cluster.store.stats}")
+        f"{cluster.store.stats}; decode K/V {kv_bytes} bytes")
     for r in reqs:
         log(f"    req {r.request_id} ({len(r.prompt_tokens)} text + "
             f"{r.mm_tokens} image tokens) -> {r.output_tokens}")
     del cluster
-    torch.cuda.empty_cache()
+    release(torch)
     return stats
 
 
@@ -833,7 +975,7 @@ def ssd_dynamic_smem(torch, mangled):
         m.group(1) == "out_kernel"]
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "4b")
+ALL_PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "5f", "4b")
 
 
 def main() -> int:
@@ -903,7 +1045,7 @@ def main() -> int:
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
-    if phases & {"4", "5"}:
+    if phases & {"4", "5", "5f"}:
         cfg = get_config("llava-next-mistral-7b")
         t0 = time.perf_counter()
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -926,13 +1068,30 @@ def main() -> int:
                 smoke_requests(cfg, IMAGE_TOKENS), MAX_LEN, True,
                 (attn[0], attn[2]), paged=True, page_size=16,
                 prefix_cache=True, chunked_prefill=True, prefill_chunk=512)
+        if "5f" in phases:
+            log(f"[5f] serve, paged, fp8 K/V (prefix cache, chunked prefill "
+                f"512): run_continuous, {cfg.n_layers} layers")
+            serve_stats["paged fp8"] = serve(
+                torch, dev, cfg, params, "paged fp8",
+                smoke_requests(cfg, IMAGE_TOKENS), MAX_LEN, True,
+                (attn[0], attn[2]), kv_dtype=torch.float8_e4m3fn,
+                paged=True, page_size=16, prefix_cache=True,
+                chunked_prefill=True, prefill_chunk=512)
+        if "paged" in serve_stats and "paged fp8" in serve_stats:
+            same = (serve_stats["paged"]["outputs"]
+                    == serve_stats["paged fp8"]["outputs"])
+            pools = [serve_stats[m]["kv_bytes"]
+                     for m in ("paged", "paged fp8")]
+            log(f"[5f] bf16 and fp8 K/V greedy outputs identical: {same} "
+                f"(not required); decode pool K/V {pools[0]} -> {pools[1]} "
+                f"bytes")
         if "dense" in serve_stats and "paged" in serve_stats:
             same = (serve_stats["dense"]["outputs"]
                     == serve_stats["paged"]["outputs"])
             log(f"[5] dense and paged greedy outputs identical: {same} "
                 f"(bf16; not required)")
         del params
-        torch.cuda.empty_cache()
+        release(torch)
     if "4b" in phases:
         cfg = get_config("mamba2-370m")
         t0 = time.perf_counter()
@@ -954,7 +1113,7 @@ def main() -> int:
                 == serve_stats["mamba2 continuous"]["outputs"])
         log(f"[4b] serial and continuous greedy outputs identical: {same}")
         del params
-        torch.cuda.empty_cache()
+        release(torch)
 
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
@@ -984,6 +1143,12 @@ def main() -> int:
             rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "call_ms", "library_call_ms")}
+        if "fp8" in r:          # K/V in float8_e4m3fn; launches: phase 5f
+            rows[-1]["fp8"] = {key: r["fp8"][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "call_ms", "library_call_ms")}
+            rows[-1]["fp8"]["launches"] = serve_stats.get(
+                "paged fp8", {}).get("counts", {}).get(kname, 0)
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

@@ -4,6 +4,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,6 +14,7 @@ namespace rt {
 constexpr float NEG_INF = -1e30f;   // the reference's masked score
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_FP8 = 2;        // e4m3 K/V storage, decode pair only
 
 template <typename T>
 struct Cvt;

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel `decode_attention` of
 // src/repro/kernels/decode_attention/kernel.py (pallas_call at :92): one
 // query token per batch row against a dense ring-buffer cache
-// k/v (b, S, nkv, hd) whose kv_pos (b, S) marks empty slots with -1, with
+// k/v (b, S, nkv, hd), in q's dtype or e4m3 (an fp8 cache, read as it is
+// instead of widened whole before the call, as the reference's layer
+// does), whose kv_pos (b, S) marks empty slots with -1, with
 // the query at q_pos (b,), an optional sliding window, and the g query
 // heads of a kv head handled together.
 //
@@ -58,20 +60,21 @@ struct DenseKV {
 
 }  // namespace
 
-// q (b, nq, hd), k/v (b, S, nkv, hd), qpos (b,), kpos (b, S) int32,
-// out (b, nq, hd); nsplit splits of split_len tokens a row (a multiple of
-// 64); part and counters as in decode_common.cuh (unused for one split).
+// q (b, nq, hd) and out (b, nq, hd) in dtype, k/v (b, S, nkv, hd) in
+// kv_dtype (dtype or DTYPE_FP8, e4m3), qpos (b,), kpos (b, S) int32;
+// nsplit splits of split_len tokens a row (a multiple of 64); part and
+// counters as in decode_common.cuh (unused for one split).
 // Returns the CUDA error code of the launch (0 = ok).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* qpos,
                                     const void* kpos, void* out, void* part,
                                     void* counters, int b, int S, int nq,
-                                    int nkv, int hd, int dtype, int window,
-                                    int split_len, int nsplit, float scale,
-                                    void* stream) {
+                                    int nkv, int hd, int dtype,
+                                    int kv_dtype, int window, int split_len,
+                                    int nsplit, float scale, void* stream) {
   DenseKV kv{static_cast<const int*>(qpos), static_cast<const int*>(kpos), S,
              nkv};
-  return rt::decode_dispatch(dtype, hd, q, k, v, kv, out, part, counters, b,
-                             nq, nkv, nsplit, split_len, window, scale,
-                             static_cast<cudaStream_t>(stream));
+  return rt::decode_dispatch(dtype, kv_dtype, hd, q, k, v, kv, out, part,
+                             counters, b, nq, nkv, nsplit, split_len, window,
+                             scale, static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,16 @@
 //   as the TPU kernel rounds p, V by ldmatrix.trans). No block barrier
 //   between a tile's two products; the warps' (m, l, O) merge once at
 //   the end.
+// * K/V in e4m3 (an fp8 KV cache or pool, the reference's
+//   kv_dtype=float8_e4m3fn): the storage type KT is a template parameter
+//   apart from q's and out's type T, so the ring holds the bytes as they
+//   are (16 elements a 16-byte cp.async chunk: half the bytes a tile) and
+//   each value is widened exactly where it is used (every e4m3 value,
+//   subnormals and NaN included, is exact in f16, bf16 and f32). The
+//   bf16 products take their fragments from 4-byte reads of the rows:
+//   Q.K^T permutes its k order inside each 16-dim step (q's fragments
+//   are loaded in the same order), P.V takes dims 32m + 4n + j as column
+//   n of n-block j and puts them back in order at the end.
 // * f32 (no tensor-core path at this precision): CUDA cores, threads
 //   across tokens for Q.K^T (four threads a token, each a quarter of hd
 //   inside the thread against q in shared memory), one warp per q head for
@@ -142,6 +152,48 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// two e4m3 values (the low 16 bits, lowest byte first) widened to float:
+// e4m3 -> f16 (cvt.rn.f16x2.e4m3x2) -> f32, both exact
+__device__ __forceinline__ float2 f8x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// four e4m3 values (the bytes of w, lowest first) widened to float
+__device__ __forceinline__ void f8x4_to_f32(uint32_t w, float* f) {
+  const float2 a = f8x2_to_float2(w), b = f8x2_to_float2(w >> 16);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+// two e4m3 values (the low 16 bits) as a bf16x2 mma operand, exact
+__device__ __forceinline__ uint32_t f8x2_to_bf16x2(uint32_t two) {
+  const float2 f = f8x2_to_float2(two);
+  return pack_bf16(f.x, f.y);
+}
+
+// dot[gi] += q[gi][d0 .. d0 + N) . kf for the G q heads (q in shared
+// memory, f32, HD a head), as two FMA chains a head
+template <int G, int HD, int N>
+__device__ __forceinline__ void dot_q(float (&dot)[G][2], const float* s_q,
+                                      const float* kf, int d0) {
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const float4* qv = reinterpret_cast<const float4*>(s_q + gi * HD + d0);
+#pragma unroll
+    for (int e4 = 0; e4 < N / 4; ++e4) {
+      const float4 x = qv[e4];
+      dot[gi][0] = fmaf(x.x, kf[4 * e4], dot[gi][0]);
+      dot[gi][1] = fmaf(x.y, kf[4 * e4 + 1], dot[gi][1]);
+      dot[gi][0] = fmaf(x.z, kf[4 * e4 + 2], dot[gi][0]);
+      dot[gi][1] = fmaf(x.w, kf[4 * e4 + 3], dot[gi][1]);
+    }
+  }
+}
+
 // one 16-byte chunk of a K/V row, widened to float
 template <typename T>
 struct Chunk;
@@ -154,6 +206,17 @@ struct Chunk<float> {
     f[1] = __uint_as_float(u.y);
     f[2] = __uint_as_float(u.z);
     f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <>
+struct Chunk<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    f8x4_to_f32(u.x, f);
+    f8x4_to_f32(u.y, f + 4);
+    f8x4_to_f32(u.z, f + 8);
+    f8x4_to_f32(u.w, f + 12);
   }
 };
 
@@ -176,9 +239,10 @@ struct Chunk<__nv_bfloat16> {
 // (DEC_PARTS x G x TILE), the probabilities (TILE x G), alpha (8), final m
 // and l (16), the row table of a segment (DEC_SEG ints) and the source's
 // own table (DEC_SEG + 2). The ring, once drained, holds the per-warp sums.
-template <typename T, int HD, int G>
+// KT is the K/V storage type.
+template <typename KT, int HD, int G>
 struct DecLayout {
-  static constexpr int C = HD * (int)sizeof(T) / 16;  // chunks in a row
+  static constexpr int C = HD * (int)sizeof(KT) / 16;  // chunks in a row
   static constexpr int RS = C + 1;                     // padded row stride
   static constexpr int TILE_CH = DEC_TILE * RS;        // chunks a K/V tile
   static constexpr size_t RING = (size_t)DEC_STAGES * 2 * TILE_CH * 16;
@@ -188,23 +252,30 @@ struct DecLayout {
   static_assert(4 * DEC_WARPS * G * HD <= RING, "warp sums fit the ring");
 };
 
-// One block per (split, kv head, batch row). Partials, f32, one buffer:
-// acc (rows, nsplit, G, HD) then m and l (rows, nsplit, 2, G), rows = b *
-// nkv; counters (rows,) int32, 0 between launches.
-template <typename T, int HD, int G, class KV>
+// One block per (split, kv head, batch row); q and out in T, K/V stored
+// in KT (T, or e4m3). Partials, f32, one buffer: acc (rows, nsplit, G,
+// HD) then m and l (rows, nsplit, 2, G), rows = b * nkv; counters (rows,)
+// int32, 0 between launches.
+template <typename T, typename KT, int HD, int G, class KV>
 __global__ void __launch_bounds__(DEC_THREADS)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, KV kv, T* __restrict__ out,
+decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
+                    const KT* __restrict__ vc, KV kv, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
                     int nq, int g, int split_len, int window, float qscale) {
-  using L = DecLayout<T, HD, G>;
+  using L = DecLayout<KT, HD, G>;
   constexpr int C = L::C, RS = L::RS, TILE_CH = L::TILE_CH;
-  constexpr int EPC = Chunk<T>::N;          // elements a chunk
+  constexpr int EPC = Chunk<KT>::N;         // elements a chunk
   constexpr int NTG = DEC_THREADS / C;      // token groups of P.V
-  constexpr int TPT = DEC_TILE / NTG;       // tokens a thread a tile, P.V
+  // tokens a thread a tile, P.V (rows of two chunks leave threads idle)
+  constexpr int TPT = NTG >= DEC_TILE ? 1 : DEC_TILE / NTG;
   constexpr int HD4 = HD / 4;
   constexpr int CP = C / DEC_PARTS;         // chunks a thread, Q.K^T
-  static_assert(C % DEC_PARTS == 0 && C <= 32, "row chunks");
+  constexpr int NCP = (DEC_TILE * C + DEC_THREADS - 1) / DEC_THREADS;
+  // a row of two chunks (e4m3, hd 32) runs Q.K^T on half a chunk a thread
+  static_assert((C % DEC_PARTS == 0 || 2 * C == DEC_PARTS) && C <= 32,
+                "row chunks");
+  constexpr bool kF8 = std::is_same<KT, __nv_fp8_e4m3>::value;
+  static_assert(kF8 || std::is_same<KT, T>::value, "K/V in T or e4m3");
   // bf16 runs Q.K^T and P.V on the tensor cores, 8 tokens a warp
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   static_assert(!kMma || DEC_TILE == 8 * DEC_WARPS, "8 tokens a warp");
@@ -239,10 +310,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     if constexpr (kMma) {
       const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
           q + ((size_t)bi * nq + kvh * g + r) * HD);
+      // k order of a 16-dim step: bf16 K the mma's own (2cq, 2cq + 8);
+      // e4m3 K dims 4cq .. 4cq + 3, one 4-byte read of the row
+      const int i0 = kF8 ? 2 * cq : cq, i1 = kF8 ? 2 * cq + 1 : cq + 4;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        qa[ks][0] = r < g ? qrow[ks * 8 + cq] : 0u;
-        qa[ks][1] = r < g ? qrow[ks * 8 + 4 + cq] : 0u;
+        qa[ks][0] = r < g ? qrow[ks * 8 + i0] : 0u;
+        qa[ks][1] = r < g ? qrow[ks * 8 + i1] : 0u;
       }
     } else {
       for (int i = tid; i < G * HD; i += DEC_THREADS)
@@ -303,8 +377,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       uint4* vd = kd + TILE_CH;
       const int* rows = s_row + (tile0 + it) * DEC_TILE;
 #pragma unroll
-      for (int j = 0; j < DEC_TILE * C / DEC_THREADS; ++j) {
+      for (int j = 0; j < NCP; ++j) {
         const int c = tid + j * DEC_THREADS;
+        if (DEC_TILE * C % DEC_THREADS != 0 && c >= DEC_TILE * C) break;
         const int tok = c / C, col = c % C;
         const int rw = rows[tok];
         const size_t off = (size_t)max(rw, 0) * HD + col * EPC;
@@ -332,15 +407,30 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         // registers, V by ldmatrix.trans).
         const int tw = warp * 8;
         float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (kF8) {
+          // this lane's 4 bytes of each 16-dim step of token tw + r's K
+          // row, dims 16ks + 4cq .. +3 (the order q's fragments hold)
+          const uint32_t* krow =
+              reinterpret_cast<const uint32_t*>(kt + (tw + r) * RS);
 #pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
-          uint32_t kb[4];
-          ldsm_x4(kb, kt + (tw + (lane & 7)) * RS + 2 * ks + (lane >> 3));
-          const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
-          mma_16816(s, a0, kb);
-          if (ks + 1 < KS) {
-            const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
-            mma_16816(s, a1, kb + 2);
+          for (int ks = 0; ks < KS; ++ks) {
+            const uint32_t w = krow[4 * ks + cq];
+            const uint32_t kb[2] = {f8x2_to_bf16x2(w),
+                                    f8x2_to_bf16x2(w >> 16)};
+            const uint32_t a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+            mma_16816(s, a, kb);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < KS; ks += 2) {
+            uint32_t kb[4];
+            ldsm_x4(kb, kt + (tw + (lane & 7)) * RS + 2 * ks + (lane >> 3));
+            const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+            mma_16816(s, a0, kb);
+            if (ks + 1 < KS) {
+              const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
+              mma_16816(s, a1, kb + 2);
+            }
           }
         }
         const bool ok0 = rows[tw + 2 * cq] >= 0;
@@ -360,17 +450,40 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         l_run[0] = l_run[0] * alpha + ps;
         m_run[0] = mn;
         const uint32_t pa = pack_bf16(p0, p1);
+        if constexpr (kF8) {
+          // V rows of tokens tw + 2cq and tw + 2cq + 1: lane r reads bytes
+          // 4r .. 4r + 3 of each 32-dim group m of both, so n-block 4m + j
+          // holds dims 32m + 4n + j as its column n (n = 0..7)
+          const uint32_t* v0 =
+              reinterpret_cast<const uint32_t*>(vt + (tw + 2 * cq) * RS);
+          const uint32_t* v1 = v0 + 4 * RS;
 #pragma unroll
-        for (int n4 = 0; n4 < HD / 32; ++n4) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vt + (tw + (lane & 7)) * RS + 4 * n4 + (lane >> 3));
+          for (int m = 0; m < HD / 32; ++m) {
+            const uint32_t w0 = v0[8 * m + r], w1 = v1[8 * m + r];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float* d = oacc[4 * n4 + j];
-            float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
-            mma_1688(c, pa, 0u, vb[j]);
-            d[0] = c[0];
-            d[1] = c[1];
+            for (int j = 0; j < 4; ++j) {
+              float* d = oacc[4 * m + j];
+              float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
+              mma_1688(c, pa, 0u,
+                       f8x2_to_bf16x2(__byte_perm(w0, w1, j | (4 + j) << 4)));
+              d[0] = c[0];
+              d[1] = c[1];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n4 = 0; n4 < HD / 32; ++n4) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb,
+                          vt + (tw + (lane & 7)) * RS + 4 * n4 + (lane >> 3));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float* d = oacc[4 * n4 + j];
+              float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
+              mma_1688(c, pa, 0u, vb[j]);
+              d[0] = c[0];
+              d[1] = c[1];
+            }
           }
         }
       } else {
@@ -379,24 +492,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
           float dot[G][2];          // two chains a head
 #pragma unroll
           for (int gi = 0; gi < G; ++gi) dot[gi][0] = dot[gi][1] = 0.f;
+          if constexpr (C >= DEC_PARTS) {
 #pragma unroll
-          for (int j = 0; j < CP; ++j) {
-            const int col = h * CP + j;
-            float kf[EPC];
-            Chunk<T>::unpack(kt[t * RS + col], kf);
-#pragma unroll
-            for (int gi = 0; gi < G; ++gi) {
-              const float4* qv =
-                  reinterpret_cast<const float4*>(s_q + gi * HD + col * EPC);
-#pragma unroll
-              for (int e4 = 0; e4 < EPC / 4; ++e4) {
-                const float4 x = qv[e4];
-                dot[gi][0] = fmaf(x.x, kf[4 * e4], dot[gi][0]);
-                dot[gi][1] = fmaf(x.y, kf[4 * e4 + 1], dot[gi][1]);
-                dot[gi][0] = fmaf(x.z, kf[4 * e4 + 2], dot[gi][0]);
-                dot[gi][1] = fmaf(x.w, kf[4 * e4 + 3], dot[gi][1]);
-              }
+            for (int j = 0; j < CP; ++j) {
+              const int col = h * CP + j;
+              float kf[EPC];
+              Chunk<KT>::unpack(kt[t * RS + col], kf);
+              dot_q<G, HD, EPC>(dot, s_q, kf, col * EPC);
             }
+          } else {
+            // a row of two chunks: the half of chunk h / 2 at dims 8h..
+            const uint4 u = kt[t * RS + (h >> 1)];
+            float kf[8];
+            f8x4_to_f32((h & 1) ? u.z : u.x, kf);
+            f8x4_to_f32((h & 1) ? u.w : u.y, kf + 4);
+            dot_q<G, HD, 8>(dot, s_q, kf, 8 * h);
           }
 #pragma unroll
           for (int gi = 0; gi < G; ++gi)
@@ -450,8 +560,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
           for (int i = 0; i < TPT; ++i) {
             const int t = tg + i * NTG;
+            if (NTG > DEC_TILE && t >= DEC_TILE) break;
             float vf[EPC], p[G];
-            Chunk<T>::unpack(vt[t * RS + c], vf);
+            Chunk<KT>::unpack(vt[t * RS + c], vf);
 #pragma unroll
             for (int gi = 0; gi < G; ++gi) p[gi] = s_p[t * G + gi];
 #pragma unroll
@@ -486,12 +597,21 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
         for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_wm[w * G + r]);
         const float sc = exp2f(m_run[0] - M);
-        float* dst =
-            reinterpret_cast<float*>(red) + (warp * G + r) * HD + 2 * cq;
+        float* dst = reinterpret_cast<float*>(red) + (warp * G + r) * HD;
+        if constexpr (kF8) {      // column n of n-block 4m + j: 32m + 4n + j
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          dst[8 * n] = oacc[n][0] * sc;
-          dst[8 * n + 1] = oacc[n][1] * sc;
+          for (int m = 0; m < HD / 32; ++m)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                dst[32 * m + 4 * (2 * cq + e) + j] = oacc[4 * m + j][e] * sc;
+        } else {
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n) {
+            dst[8 * n + 2 * cq] = oacc[n][0] * sc;
+            dst[8 * n + 2 * cq + 1] = oacc[n][1] * sc;
+          }
         }
       }
       if (tid < G) {
@@ -584,7 +704,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __threadfence();
 
   // the merge, MB splits' loads in flight at once; l == 0 marks a split
-  // with no valid key, and a row with none at all gives 0
+  // with no valid key, and a row with none at all gives 0; a split whose
+  // l is NaN (a NaN key, as an e4m3 cache stores past its range) makes
+  // the row NaN, as in the plain version
   constexpr int MB = 8;
   const float4* ap = acc_part + (size_t)rowkv * nsplit * G * HD4;
   const float* mp = ml_part + (size_t)rowkv * nsplit * 2 * G;
@@ -604,7 +726,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
 #pragma unroll
       for (int j = 0; j < MB; ++j) {
-        if (ls[j] > 0.f) {
+        if (ls[j] != 0.f) {         // a NaN (an e4m3 NaN key) carries on
           const float mn = fmaxf(M, ms[j]);
           const float ca = exp2f(M - mn), cb = exp2f(ms[j] - mn);
           Lsum = Lsum * ca + ls[j] * cb;
@@ -620,60 +742,64 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int HD, int G, class KV>
+template <typename T, typename KT, int HD, int G, class KV>
 int decode_launch(const void* q, const void* k, const void* v, const KV& kv,
                   void* out, void* part, void* counters, int b, int nq,
                   int nkv, int nsplit, int split_len, int window,
                   float scale, cudaStream_t st) {
-  auto kern = decode_split_kernel<T, HD, G, KV>;
-  const size_t smem = DecLayout<T, HD, G>::BYTES;
+  auto kern = decode_split_kernel<T, KT, HD, G, KV>;
+  const size_t smem = DecLayout<KT, HD, G>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(nsplit, nkv, b), DEC_THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv, static_cast<T*>(out),
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), kv, static_cast<T*>(out),
       static_cast<float*>(part), static_cast<int*>(counters), nq, nq / nkv,
       split_len, window, scale * DEC_LOG2E);
   return (int)cudaGetLastError();
 }
 
-// g = nq / nkv runs on the smallest G in {1, 2, 4, 8} that holds it.
+// g = nq / nkv runs on the smallest G in {1, 2, 4, 8} that holds it; K/V
+// in q's dtype or in e4m3 (kv_dtype DTYPE_FP8).
 template <class KV>
-int decode_dispatch(int dtype, int hd, const void* q, const void* k,
-                    const void* v, const KV& kv, void* out, void* part,
-                    void* counters, int b, int nq, int nkv, int nsplit,
-                    int split_len, int window, float scale,
+int decode_dispatch(int dtype, int kv_dtype, int hd, const void* q,
+                    const void* k, const void* v, const KV& kv, void* out,
+                    void* part, void* counters, int b, int nq, int nkv,
+                    int nsplit, int split_len, int window, float scale,
                     cudaStream_t st) {
   if (nsplit < 1 || split_len % DEC_TILE) return (int)cudaErrorInvalidValue;
   const int g = nq / nkv;
   const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 0;
-#define REPRO_DECODE_CASE(TT, HH, GG)                                       \
+#define REPRO_DECODE_CASE(TT, KK, HH, GG)                                   \
   if (G == GG)                                                              \
-    return decode_launch<TT, HH, GG, KV>(q, k, v, kv, out, part, counters,  \
-                                         b, nq, nkv, nsplit, split_len,     \
-                                         window, scale, st)
-#define REPRO_DECODE_HD(TT, HH)                                             \
+    return decode_launch<TT, KK, HH, GG, KV>(q, k, v, kv, out, part,        \
+                                             counters, b, nq, nkv, nsplit,  \
+                                             split_len, window, scale, st)
+#define REPRO_DECODE_HD(TT, KK, HH)                                         \
   case HH: {                                                                \
-    REPRO_DECODE_CASE(TT, HH, 1);                                           \
-    REPRO_DECODE_CASE(TT, HH, 2);                                           \
-    REPRO_DECODE_CASE(TT, HH, 4);                                           \
-    REPRO_DECODE_CASE(TT, HH, 8);                                           \
+    REPRO_DECODE_CASE(TT, KK, HH, 1);                                       \
+    REPRO_DECODE_CASE(TT, KK, HH, 2);                                       \
+    REPRO_DECODE_CASE(TT, KK, HH, 4);                                       \
+    REPRO_DECODE_CASE(TT, KK, HH, 8);                                       \
     break;                                                                  \
   }
-  if (dtype == DTYPE_F32) {
-    switch (hd) {
-      REPRO_DECODE_HD(float, 32)
-      REPRO_DECODE_HD(float, 64)
-      REPRO_DECODE_HD(float, 128)
-    }
-  } else if (dtype == DTYPE_BF16) {
-    switch (hd) {
-      REPRO_DECODE_HD(__nv_bfloat16, 32)
-      REPRO_DECODE_HD(__nv_bfloat16, 64)
-      REPRO_DECODE_HD(__nv_bfloat16, 128)
-    }
+#define REPRO_DECODE_TYPES(TT, KK)                                          \
+  switch (hd) {                                                             \
+    REPRO_DECODE_HD(TT, KK, 32)                                             \
+    REPRO_DECODE_HD(TT, KK, 64)                                             \
+    REPRO_DECODE_HD(TT, KK, 128)                                            \
   }
+  if (dtype == DTYPE_F32 && kv_dtype == DTYPE_F32) {
+    REPRO_DECODE_TYPES(float, float)
+  } else if (dtype == DTYPE_F32 && kv_dtype == DTYPE_FP8) {
+    REPRO_DECODE_TYPES(float, __nv_fp8_e4m3)
+  } else if (dtype == DTYPE_BF16 && kv_dtype == DTYPE_BF16) {
+    REPRO_DECODE_TYPES(__nv_bfloat16, __nv_bfloat16)
+  } else if (dtype == DTYPE_BF16 && kv_dtype == DTYPE_FP8) {
+    REPRO_DECODE_TYPES(__nv_bfloat16, __nv_fp8_e4m3)
+  }
+#undef REPRO_DECODE_TYPES
 #undef REPRO_DECODE_HD
 #undef REPRO_DECODE_CASE
   return (int)cudaErrorInvalidValue;

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel `paged_decode_attention` of
 // src/repro/kernels/paged_decode_attention/kernel.py (pallas_call at
 // :122): one query token per slot against a shared pool
-// k/v (P, page, nkv, hd) read through a block table (b, max_pages);
+// k/v (P, page, nkv, hd), in q's dtype or in e4m3 as the TPU kernel reads
+// the reference's fp8 pools (kernel.py:51-52 widens them in the kernel),
+// read through a block table (b, max_pages);
 // lengths (b,) counts the slot's tokens including the current one, so
 // the query sits at position length-1; optional sliding window; a slot
 // of length 0 gives 0.
@@ -72,19 +74,20 @@ struct PagedKV {
 
 }  // namespace
 
-// q (b, nq, hd), pools (P, page, nkv, hd), tbl (b, max_pages) and
-// lens (b,) int32, out (b, nq, hd); nsplit splits of split_len tokens a
-// slot (a multiple of 64); part and counters as in decode_common.cuh
-// (unused for one split). Returns the CUDA error code of the launch (0 =
-// ok).
+// q (b, nq, hd) and out (b, nq, hd) in dtype, pools (P, page, nkv, hd) in
+// kv_dtype (dtype or DTYPE_FP8, e4m3), tbl (b, max_pages) and lens (b,)
+// int32; nsplit splits of split_len tokens a slot (a multiple of 64);
+// part and counters as in decode_common.cuh (unused for one split).
+// Returns the CUDA error code of the launch (0 = ok).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* tbl,
     const void* lens, void* out, void* part, void* counters, int b, int page,
-    int max_pages, int nq, int nkv, int hd, int dtype, int window,
-    int split_len, int nsplit, float scale, void* stream) {
+    int max_pages, int nq, int nkv, int hd, int dtype, int kv_dtype,
+    int window, int split_len, int nsplit, float scale, void* stream) {
   PagedKV kv{static_cast<const int*>(tbl), static_cast<const int*>(lens),
              page, max_pages, nkv};
-  return rt::decode_dispatch(dtype, hd, q, k_pool, v_pool, kv, out, part,
-                             counters, b, nq, nkv, nsplit, split_len, window,
-                             scale, static_cast<cudaStream_t>(stream));
+  return rt::decode_dispatch(dtype, kv_dtype, hd, q, k_pool, v_pool, kv, out,
+                             part, counters, b, nq, nkv, nsplit, split_len,
+                             window, scale,
+                             static_cast<cudaStream_t>(stream));
 }

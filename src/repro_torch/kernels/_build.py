@@ -91,14 +91,14 @@ _SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 6 + [_I] * 9 + [_F, _P]),
     # q, k, v, qpos, kpos, out, partials, counters, b, S, nq, nkv, hd,
-    # dtype, window, split_len, nsplit, scale, stream
+    # dtype, kv dtype, window, split_len, nsplit, scale, stream
     "decode_attention": ("decode_attention_fwd",
-                         [_P] * 8 + [_I] * 9 + [_F, _P]),
+                         [_P] * 8 + [_I] * 10 + [_F, _P]),
     # q, k_pool, v_pool, tbl, lens, out, partials, counters, b, page,
-    # max_pages, nq, nkv, hd, dtype, window, split_len, nsplit, scale,
-    # stream
+    # max_pages, nq, nkv, hd, dtype, kv dtype, window, split_len, nsplit,
+    # scale, stream
     "paged_decode_attention": ("paged_decode_attention_fwd",
-                               [_P] * 8 + [_I] * 10 + [_F, _P]),
+                               [_P] * 8 + [_I] * 11 + [_F, _P]),
     # x, dt, a, b, c, d_skip, init (or null), y, fin, states, dec, prev,
     # B, S, H, P, N, L, dtype, stream
     "ssd_scan": ("ssd_scan_fwd", [_P] * 12 + [_I] * 7 + [_P]),
@@ -126,6 +126,8 @@ def symbol(name: str, sym: str, argtypes, restype):
 # -- helpers shared by the wrappers ------------------------------------------
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+FP8 = torch.float8_e4m3fn
+FP8_CODE = 2           # K/V storage of the decode pair only
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -147,13 +149,20 @@ def require(cond: bool, msg: str) -> None:
 
 
 def check_operands(name: str, data: Sequence[torch.Tensor],
-                   index: Sequence[torch.Tensor], hd: int) -> int:
-    """Dtype, contiguity and alignment checks; returns the dtype code."""
+                   index: Sequence[torch.Tensor], hd: int,
+                   fp8_kv: bool = False) -> int:
+    """Dtype, contiguity and alignment checks; returns q's dtype code.
+    ``data`` is (q, k, v). k and v share q's dtype or, where ``fp8_kv``
+    (the decode pair), are both float8_e4m3fn; any other pairing (q f32
+    with bf16 K/V, say) raises."""
     dt = data[0].dtype
     require(dt in DTYPE_CODES,
             f"{name}: dtype {dt} not supported (float32, bfloat16)")
-    require(all(t.dtype == dt for t in data),
-            f"{name}: q/k/v dtypes differ: {[t.dtype for t in data]}")
+    kv = {t.dtype for t in data[1:]}
+    require(kv == {dt} or (fp8_kv and kv == {FP8}),
+            f"{name}: q/k/v dtypes {[t.dtype for t in data]} not supported "
+            f"(k and v in q's dtype"
+            + (" or both float8_e4m3fn)" if fp8_kv else ")"))
     require(all(t.dtype == torch.int32 for t in index),
             f"{name}: index/position tensors must be int32")
     require(all(t.is_contiguous() for t in (*data, *index)),
@@ -162,6 +171,12 @@ def check_operands(name: str, data: Sequence[torch.Tensor],
             f"{name}: q/k/v must be 16-byte aligned")
     require(hd in HEAD_DIMS, f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     return DTYPE_CODES[dt]
+
+
+def kv_code(k: torch.Tensor) -> int:
+    """The C interface's code of a K/V storage dtype (checked first by
+    ``check_operands``)."""
+    return FP8_CODE if k.dtype == FP8 else DTYPE_CODES[k.dtype]
 
 
 def check_window(window) -> int:

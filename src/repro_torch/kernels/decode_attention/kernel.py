@@ -109,8 +109,9 @@ def check_group(name: str, nq: int, nkv: int) -> None:
 
 def decode_attention(q, k, v, q_pos, kv_pos, *,
                      window: Optional[int] = None) -> torch.Tensor:
-    """q: (b, nq, hd); k, v: (b, S, nkv, hd); q_pos: (b,); kv_pos: (b, S)
-    int32, -1 = empty slot. Returns (b, nq, hd) in q's dtype."""
+    """q: (b, nq, hd); k, v: (b, S, nkv, hd) in q's dtype or both
+    float8_e4m3fn (an fp8 cache, read as it is); q_pos: (b,); kv_pos:
+    (b, S) int32, -1 = empty slot. Returns (b, nq, hd) in q's dtype."""
     global LAUNCHES
     if B.is_plain(q, k, v, q_pos, kv_pos):
         return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window)
@@ -127,14 +128,14 @@ def decode_attention(q, k, v, q_pos, kv_pos, *,
     B.require(b * S * nkv < 2 ** 31,
               "decode_attention: the kernel indexes K/V rows in int32")
     code = B.check_operands("decode_attention", (q, k, v), (q_pos, kv_pos),
-                            hd)
+                            hd, fp8_kv=True)
     win = B.check_window(window)
     out = torch.empty_like(q)
     split_len, nsplit, part, cnt = launch_scratch(b, nkv, nq // nkv, hd, S,
                                                   q.device)
     B.launch("decode_attention", q.device, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-             out.data_ptr(), ptr(part), ptr(cnt), b, S, nq, nkv, hd, code, win,
-             split_len, nsplit, hd ** -0.5)
+             out.data_ptr(), ptr(part), ptr(cnt), b, S, nq, nkv, hd, code,
+             B.kv_code(k), win, split_len, nsplit, hd ** -0.5)
     LAUNCHES += 1
     return out

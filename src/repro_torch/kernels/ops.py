@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels._build import FP8
 from repro_torch.kernels.decode_attention import kernel as _decode
 from repro_torch.kernels.flash_attention import kernel as _flash
 from repro_torch.kernels.paged_decode_attention import kernel as _paged
@@ -24,11 +25,20 @@ _WRAPPERS = {"flash_attention": _flash, "decode_attention": _decode,
 
 def attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
               causal: bool = True) -> torch.Tensor:
-    """q: (b, s, nq, hd); k, v: (b, S, nkv, hd). See flash_attention/ref.py."""
+    """q: (b, s, nq, hd); k, v: (b, S, nkv, hd). See flash_attention/ref.py.
+
+    K/V in float8_e4m3fn (an fp8 KV cache) are read as they are by the
+    decode kernel only; flash never receives fp8, as in the reference,
+    whose callers widen a gathered fp8 pool first."""
     if q.shape[1] == 1 and causal:
         out = _decode.decode_attention(q[:, 0], k, v, q_pos[:, 0].contiguous(),
                                        kv_pos, window=window)
         return out[:, None]
+    if FP8 in (k.dtype, v.dtype):
+        raise ValueError("attention: fp8 K/V are read only by the decode "
+                         "kernel (one causal query token); widen them to "
+                         f"q's dtype first, got q{tuple(q.shape)}, "
+                         f"causal={causal}")
     return _flash.flash_attention(q, k, v, q_pos, kv_pos, window=window,
                                   causal=causal)
 

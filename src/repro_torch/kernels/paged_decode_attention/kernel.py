@@ -28,7 +28,8 @@ SYMBOLS = (("19decode_split_kernelI", "7PagedKV"),)
 
 def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
                            window: Optional[int] = None) -> torch.Tensor:
-    """q: (b, nq, hd); k_pool, v_pool: (P, page, nkv, hd); block_tbl:
+    """q: (b, nq, hd); k_pool, v_pool: (P, page, nkv, hd) in q's dtype
+    or both float8_e4m3fn (an fp8 pool, read as it is); block_tbl:
     (b, max_pages) int32; lengths: (b,) int32 valid tokens including the
     current one. Returns (b, nq, hd) in q's dtype."""
     global LAUNCHES
@@ -51,7 +52,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
     B.require(n_pages * page * nkv < 2 ** 31,
               "paged_decode_attention: the kernel indexes K/V rows in int32")
     code = B.check_operands("paged_decode_attention", (q, k_pool, v_pool),
-                            (block_tbl, lengths), hd)
+                            (block_tbl, lengths), hd, fp8_kv=True)
     win = B.check_window(window)
     max_pages = block_tbl.shape[1]
     out = torch.empty_like(q)
@@ -60,7 +61,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
     B.launch("paged_decode_attention", q.device, q.data_ptr(),
              k_pool.data_ptr(), v_pool.data_ptr(), block_tbl.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), ptr(part), ptr(cnt), b, page,
-             max_pages, nq, nkv, hd, code, win, split_len, nsplit,
-             hd ** -0.5)
+             max_pages, nq, nkv, hd, code, B.kv_code(k_pool), win,
+             split_len, nsplit, hd ** -0.5)
     LAUNCHES += 1
     return out

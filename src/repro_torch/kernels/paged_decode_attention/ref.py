@@ -19,7 +19,9 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths,
     """Single-token GQA attention over a paged KV pool.
 
     q:              (b, nq, hd) — the new token's queries.
-    k_pool, v_pool: (n_pages, page, nkv, hd) — shared physical pages.
+    k_pool, v_pool: (n_pages, page, nkv, hd) — shared physical pages, in
+                    q's dtype or float8_e4m3fn (widened to q's dtype
+                    after the gather, as the reference's oracle does).
     block_tbl:      (b, max_pages) int32 — physical page of each logical
                     page; unmapped entries point at the trash page 0.
     lengths:        (b,) int32 — valid KV tokens per slot INCLUDING the

@@ -6,11 +6,13 @@
   # the attention-free SSM: text only, so P->D through ssd_scan
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch mamba2-370m --max-len 2048
+  # K/V stored in float8_e4m3fn (the reference's --kv-fp8)
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-fp8
 
 Runs the model at its full width and depth in bf16 by default
 (``--reduced`` for the small CPU-test variant, ``--device cpu`` for the
 plain PyTorch versions on the CPU). The reference's ``--simulate`` mode
-and the fp8 KV option are not ported yet (see ROADMAP.md).
+is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -38,6 +40,36 @@ def smoke_requests(cfg, image_tokens: int = 0):
     return reqs
 
 
+def with_kv_dtype(cluster, params, kv_dtype):
+    """Rebuild ``cluster``'s prefill engine and its ``decode_engines`` with
+    the K/V of every attention layer stored in ``kv_dtype`` (the
+    reference's ``--kv-fp8``), each with the options it had, built as
+    ``EPDCluster`` builds them: the cluster's tracer, metrics, accountant
+    and device, the engines' cache dtype, the fault injector on the
+    decode side. The reference's launcher assigns the read-only
+    ``decode_engine`` property instead, which raises AttributeError."""
+    from repro_torch.serving.engine import Engine
+
+    def rebuild(eng, **kw):
+        return Engine(
+            cluster.cfg, params, max_batch=eng.max_batch,
+            max_len=eng.max_len, cache_dtype=eng.cache_dtype,
+            kv_dtype=kv_dtype, device=cluster.device, paged=eng.paged,
+            page_size=eng.page_size,
+            n_pool_pages=eng.pool.n_pages if eng.paged else None,
+            prefix_cache=eng.prefix_cache is not None,
+            chunked_prefill=eng.chunked_prefill,
+            prefill_chunk=eng.prefill_chunk, name=eng.name,
+            tracer=cluster.tracer, metrics=cluster.metrics,
+            accountant=cluster.acc, **kw)
+
+    cluster.prefill_engine = rebuild(cluster.prefill_engine)
+    cluster.decode_engines = [
+        rebuild(e, preemption=e.preemption, faults=cluster.injector)
+        for e in cluster.decode_engines]
+    return cluster
+
+
 def run_real(args):
     from repro_torch.configs import get_config
     from repro_torch.core.cluster import EPDCluster
@@ -54,6 +86,8 @@ def run_real(args):
     params = init_params(cfg, gen, device=device, dtype=dtype)
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=args.max_len,
                          kv_scheme=args.kv_scheme, device=device)
+    if args.kv_fp8:
+        with_kv_dtype(cluster, params, torch.float8_e4m3fn)
     mm_tokens = cfg.frontend.tokens_per_item if cfg.frontend else 0
     reqs = []
     for i in range(args.requests):
@@ -85,6 +119,9 @@ def main():
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-fp8", action="store_true",
+                    help="store K/V in float8_e4m3fn (prefill and decode "
+                         "engines)")
     ap.add_argument("--reduced", action="store_true",
                     help="the small same-family variant (cfg.reduced())")
     run_real(ap.parse_args())

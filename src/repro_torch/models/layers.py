@@ -16,6 +16,23 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 
+FP8 = K.FP8
+# the largest magnitude that rounds into float8_e4m3fn (448 and the tie
+# at 464 round to 448; 480 would be the NaN code)
+_FP8_LIMIT = 464.0
+
+
+def to_kv(x, dtype):
+    """``x`` in the KV storage dtype ``dtype``: every value that enters a
+    KV cache or pool goes through here. For float8_e4m3fn it is the
+    reference's ``astype``: NaN (with x's sign) where |x| > 464 or x is
+    infinite, round-to-nearest-even elsewhere; ``Tensor.to`` would
+    saturate to +-448 instead. Any other dtype is a plain ``.to``."""
+    if dtype == FP8 and x.dtype != FP8:
+        x = torch.copysign(x.masked_fill(x.abs() > _FP8_LIMIT, float("nan")),
+                           x)
+    return x.to(dtype)
+
 
 def rms_norm(x, w, eps: float = 1e-5):
     dt = x.dtype
@@ -52,6 +69,7 @@ class AttnCache(NamedTuple):
 
 def make_attn_cache(cfg: ModelConfig, n_repeats: int, batch: int,
                     max_len: int, dtype, device):
+    """``dtype`` is the K/V storage dtype (fp8 included); kv_pos is int32."""
     s = max_len
     kshape = (n_repeats, batch, s, cfg.n_kv_heads, cfg.head_dim)
     return AttnCache(torch.zeros(kshape, dtype=dtype, device=device),
@@ -74,6 +92,7 @@ class PagedAttnCache(NamedTuple):
 
 def make_paged_attn_cache(cfg: ModelConfig, n_repeats: int, n_pages: int,
                           page_size: int, dtype, device):
+    """``dtype`` is the K/V storage dtype (fp8 included)."""
     shape = (n_repeats, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return PagedAttnCache(torch.zeros(shape, dtype=dtype, device=device),
                           torch.zeros(shape, dtype=dtype, device=device))
@@ -130,8 +149,8 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             pidx = torch.clamp(pos // page, 0, pages.shape[1] - 1)
             phys = torch.gather(pages, 1, pidx[:, None].long())[:, 0].long()
             off = (pos % page).long()
-            ck[phys, off] = k[:, 0].to(ck.dtype)
-            cv[phys, off] = v[:, 0].to(cv.dtype)
+            ck[phys, off] = to_kv(k[:, 0], ck.dtype)
+            cv[phys, off] = to_kv(v[:, 0], cv.dtype)
             new_cache = (ck, cv)
             out = K.paged_attention(q[:, 0], ck, cv, pages, pos + 1,
                                     window=window)[:, None]
@@ -145,9 +164,10 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             if npg > pages.shape[1]:
                 raise ValueError("prefill longer than block table")
             flat = pages[:, :npg].reshape(-1).long()
-            ck[flat] = k.reshape(b * npg, page, *k.shape[2:]).to(ck.dtype)
-            cv[flat] = v.reshape(b * npg, page, *v.shape[2:]).to(cv.dtype)
+            ck[flat] = to_kv(k.reshape(b * npg, page, *k.shape[2:]), ck.dtype)
+            cv[flat] = to_kv(v.reshape(b * npg, page, *v.shape[2:]), cv.dtype)
             new_cache = (ck, cv)
+            # attends over the unrounded k/v, as the reference does
             out = K.attention(q, k, v, positions, positions, window=window)
         else:
             # ---- suffix prefill against a cached prefix (batch 1) ----
@@ -163,16 +183,17 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             # bounds; reproduce that
             start = min(max(int(pos_base) // page, 0), width - npg)
             flat = pages[:, start:start + npg].reshape(-1).long()
-            kp = k.reshape(b * npg, page, *k.shape[2:]).to(ck.dtype)
-            vp = v.reshape(b * npg, page, *v.shape[2:]).to(cv.dtype)
+            kp = to_kv(k.reshape(b * npg, page, *k.shape[2:]), ck.dtype)
+            vp = to_kv(v.reshape(b * npg, page, *v.shape[2:]), cv.dtype)
             # token-masked scatter: dummy positions (the CoW page's copied
             # prefix tokens and the right padding) keep the pool's values
             keep = (positions >= 0).reshape(b * npg, page)[..., None, None]
             ck[flat] = torch.where(keep, kp, ck[flat])
             cv[flat] = torch.where(keep, vp, cv[flat])
             new_cache = (ck, cv)
-            # gather the cached prefix through the whole block-table row;
-            # slots at/after prefix_len are masked out
+            # gather the cached prefix through the whole block-table row
+            # (in q's dtype: an fp8 pool is widened here, flash never
+            # reads fp8); slots at/after prefix_len are masked out
             row = pages.reshape(-1).long()
             pk = ck[row].reshape(b, width * page, *k.shape[2:])
             pv = cv[row].reshape(b, width * page, *v.shape[2:])
@@ -193,20 +214,23 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             # ---- decode: write one token into the ring buffer ----
             slot = (cur_len % S).long()                        # (b,)
             bidx = torch.arange(b, device=x.device)
-            ck[bidx, slot] = k[:, 0].to(ck.dtype)
-            cv[bidx, slot] = v[:, 0].to(cv.dtype)
+            ck[bidx, slot] = to_kv(k[:, 0], ck.dtype)
+            cv[bidx, slot] = to_kv(v[:, 0], cv.dtype)
             cpos[bidx, slot] = positions[:, 0].to(torch.int32)
             new_cache = (ck, cv, cpos)
-            out = K.attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                              positions, cpos, window=window)
+            # the decode kernel reads an fp8 cache as it is (the reference
+            # casts the whole cache to q's dtype first: the same function)
+            kv = (ck, cv) if ck.dtype == FP8 else (ck.to(q.dtype),
+                                                   cv.to(q.dtype))
+            out = K.attention(q, *kv, positions, cpos, window=window)
         else:
             # ---- prefill into cache (serving): seq fits the buffer ----
             s = k.shape[1]
             if S - s < 0:
                 raise ValueError("prefill longer than cache")
-            ck[:, :s] = k.to(ck.dtype)
+            ck[:, :s] = to_kv(k, ck.dtype)
             ck[:, s:] = 0
-            cv[:, :s] = v.to(cv.dtype)
+            cv[:, :s] = to_kv(v, cv.dtype)
             cv[:, s:] = 0
             cpos[:, :s] = positions
             cpos[:, s:] = -1

@@ -38,11 +38,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                dtype=torch.float32, device="cpu", layout: str = "dense",
-                page_size: int = 16, n_pages: int = 0,
+                dtype=torch.float32, kv_dtype=None, device="cpu",
+                layout: str = "dense", page_size: int = 16, n_pages: int = 0,
                 with_attn: bool = True) -> Dict[str, Any]:
     """Cache dict for serving, one "attn" and one "ssm" entry per pattern
     position (None where the mixer has no such state).
+
+    kv_dtype: storage dtype of the attention K/V only (e.g.
+    torch.float8_e4m3fn), default ``dtype``; SSM state and conv tails
+    keep ``dtype``, kv_pos stays int32.
 
     layout="paged": attention KV lives in a shared pool of ``n_pages``
     physical pages of ``page_size`` tokens (page 0 is the trash page) and
@@ -52,6 +56,7 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     in its own pool).
     """
     check_supported(cfg)
+    kv_dtype = kv_dtype or dtype
     paged = layout == "paged"
     if paged:
         if max_len % page_size:
@@ -72,10 +77,10 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
             attn.append(None)
         elif paged:
             attn.append(L.make_paged_attn_cache(
-                cfg, cfg.n_repeats, n_pages, page_size, dtype, device))
+                cfg, cfg.n_repeats, n_pages, page_size, kv_dtype, device))
         else:
             attn.append(L.make_attn_cache(cfg, cfg.n_repeats, batch, max_len,
-                                          dtype, device))
+                                          kv_dtype, device))
     caches = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": None,
               "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged:

@@ -381,11 +381,7 @@ class Engine:
         # reference's f32 default; bf16 params: bf16 KV)
         self.cache_dtype = (cache_dtype if cache_dtype is not None
                             else params["embed"].dtype)
-        if kv_dtype is not None and kv_dtype != self.cache_dtype:
-            raise NotImplementedError(
-                "a KV storage dtype other than the cache dtype (the fp8 "
-                "KV option) is not ported yet (see ROADMAP.md)")
-        self.kv_dtype = kv_dtype
+        self.kv_dtype = kv_dtype          # e.g. torch.float8_e4m3fn
         self.paged = paged
         self.page_size = page_size
         self.chunked_prefill = chunked_prefill
@@ -419,7 +415,8 @@ class Engine:
                                  metrics=self.metrics, name=name)
             self.caches = make_caches(
                 cfg, max_batch, max_len, dtype=self.cache_dtype,
-                device=self.device, layout="paged", page_size=page_size,
+                kv_dtype=kv_dtype, device=self.device, layout="paged",
+                page_size=page_size,
                 n_pages=n_pool_pages)
             self._prefill = make_prefill_fn(cfg)
             self._insert_side = make_paged_insert_fn(cfg)
@@ -438,7 +435,7 @@ class Engine:
             self._insert = make_insert_fn(cfg)
             self.caches = make_caches(cfg, max_batch, max_len,
                                       dtype=self.cache_dtype,
-                                      device=self.device)
+                                      kv_dtype=kv_dtype, device=self.device)
         self.prefix_cache: Optional[PrefixCache] = None
         self._prefill_suffix = None
         if prefix_cache or chunked_prefill:
@@ -647,7 +644,8 @@ class Engine:
 
     def _side_caches(self):
         return make_caches(self.cfg, 1, self.max_len, dtype=self.cache_dtype,
-                           device=self.device, with_attn=False)
+                           kv_dtype=self.kv_dtype, device=self.device,
+                           with_attn=False)
 
     def _idx(self, x) -> torch.Tensor:
         """Host ints / int array -> int32 tensor on this engine's device."""
@@ -1015,7 +1013,7 @@ class Engine:
             if self._prefill_caches is None:
                 self._prefill_caches = make_caches(
                     cfg, 1, self.max_len, dtype=self.cache_dtype,
-                    device=self.device)
+                    kv_dtype=self.kv_dtype, device=self.device)
             logits, caches = self._prefill(self.params, self._idx(toks),
                                            lengths, self._prefill_caches,
                                            mm_embeds, enc_frames, mm_feats,

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 from typing import (Any, Callable, Dict, Iterable, Iterator, List,
                     NamedTuple, Tuple)
 
@@ -135,8 +136,19 @@ class GraphStep:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
 
             def capture():
-                with torch.cuda.graph(graph, stream=stream):
-                    return self.fn(*state, *static)
+                # no cyclic garbage collection inside the capture: it can
+                # free a CUDA graph of an engine dropped earlier, and
+                # destroying a graph while a stream captures invalidates
+                # the capture (torch.cuda.graph collects first only under
+                # torch.compiler.config.force_cudagraph_gc)
+                enabled = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, stream=stream):
+                        return self.fn(*state, *static)
+                finally:
+                    if enabled:
+                        gc.enable()
 
             outputs, launches = recorded_launches(capture)
         current.wait_stream(stream)
@@ -184,6 +196,14 @@ def census(steps: Iterable[Tuple[str, GraphStep]]) -> Dict[str, Any]:
     return out
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b hold the same values; fp8 tensors compared as their bytes
+    (a NaN that the fp8 cast stored is equal to itself there)."""
+    if a.dtype == torch.float8_e4m3fn and b.dtype == a.dtype:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a, b)
+
+
 @contextlib.contextmanager
 def held_to_eager() -> Iterator[Dict[str, int]]:
     """Within the block, every call of a graph step first runs the step
@@ -201,8 +221,8 @@ def held_to_eager() -> Iterator[Dict[str, int]]:
         before = self.replays
         logits, got = real(self, state, *inputs)
         if not (torch.equal(logits, want_logits) and all(
-                torch.equal(a, b) for a, b in zip(cache_tensors(got),
-                                                  cache_tensors(want)))):
+                _same_bits(a, b) for a, b in zip(cache_tensors(got),
+                                                 cache_tensors(want)))):
             raise AssertionError(f"graph step {self.fn.__name__}: the call "
                                  f"differs from the eager step")
         if self.replays > before:

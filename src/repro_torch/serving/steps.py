@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import to_kv
 from repro_torch.models.model import decode_forward, prefill_forward
 from repro_torch.models.transformer import clone_caches, reset_caches
 from repro_torch.serving.graphs import GraphStep
@@ -167,8 +168,9 @@ def make_page_copy_fn():
 
     def copy_fn(src_attn, dst_attn, src_ids, dst_ids):
         for dst, src in _pairs(dst_attn, src_attn):
-            dst[:, dst_ids.to(dst.device).long()] = src[
-                :, src_ids.to(src.device).long()].to(dst.device, dst.dtype)
+            dst[:, dst_ids.to(dst.device).long()] = to_kv(
+                src[:, src_ids.to(src.device).long()], dst.dtype).to(
+                    dst.device)
         return dst_attn
 
     return copy_fn
@@ -193,8 +195,8 @@ def make_page_scatter_fn():
 
     def scatter_fn(attn, data, ids):
         for pool, d in _pairs(attn, data):
-            pool[:, ids.to(pool.device).long()] = d.to(pool.device,
-                                                       pool.dtype)
+            pool[:, ids.to(pool.device).long()] = to_kv(d, pool.dtype).to(
+                pool.device)
         return attn
 
     return scatter_fn
@@ -231,7 +233,7 @@ def make_insert_fn(cfg: ModelConfig):
             shape[2] = pad
             src = torch.cat([src, torch.full(shape, fill, dtype=src.dtype,
                                              device=src.device)], dim=2)
-        dst[:, slot] = src[:, 0].to(dst.device, dst.dtype)
+        dst[:, slot] = to_kv(src[:, 0], dst.dtype).to(dst.device)
 
     def insert_fn(src_caches, dst_caches, slot: int):
         for key in ("attn", "ssm"):

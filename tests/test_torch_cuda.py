@@ -18,10 +18,15 @@ and the serving shape. The other serving shapes are checked by
 ``chip_smoke.py``. The CUDA-graph steps (``serving/graphs.py``) on small
 engines: every replay equals the eager step on a copy of the caches
 bitwise, a held dense-prefill payload survives later replays, replays
-count their launches, a replay over reallocated state raises, and the
-decode kernels' merge counters exist before the first capture.
+count their launches, a replay over reallocated state raises, no garbage
+collection runs inside a capture, and the decode kernels' merge counters
+exist before the first capture. The
+decode pair also reads K/V stored in float8_e4m3fn (an fp8 cache or
+pool) under f32 and bf16 queries, at the same cases; its wrappers refuse
+any other mixed pairing, and flash refuses fp8.
 """
 import dataclasses
+import gc
 
 import pytest
 
@@ -42,6 +47,7 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import frontend as FE  # noqa: E402
+from repro_torch.models.layers import to_kv  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.models.transformer import cache_tensors, clone_caches  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -55,6 +61,7 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
        torch.float32: dict(atol=1e-4, rtol=1e-4)}
 DTYPES = [torch.float32, torch.bfloat16]
+F8 = torch.float8_e4m3fn
 
 
 @pytest.fixture
@@ -299,12 +306,13 @@ def _ring_pos(S, cur):
     return cur - (cur - j) % S
 
 
-def _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, seed=5):
+def _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, seed=5,
+                  kv_dtype=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     b = len(kv_rows)
     q = _randn(gen, (b, nq, hd), dtype, dev)
-    k = _randn(gen, (b, S, nkv, hd), dtype, dev)
-    v = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    k = to_kv(_randn(gen, (b, S, nkv, hd), dtype, dev), kv_dtype or dtype)
+    v = to_kv(_randn(gen, (b, S, nkv, hd), dtype, dev), kv_dtype or dtype)
     kp = torch.stack(kv_rows).to(dev).contiguous()
     qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
     return q, k, v, qp, kp
@@ -315,8 +323,10 @@ def _prefix_rows(S, lens):
     return [torch.where(t < n, t, torch.full_like(t, -1)) for n in lens]
 
 
-def _check_dense(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, window=None):
-    args = _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos)
+def _check_dense(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, window=None,
+                 kv_dtype=None):
+    args = _dense_inputs(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos,
+                         kv_dtype=kv_dtype)
     ops.reset_launch_counts()
     out = decode_attention(*args, window=window)
     assert ops.launch_counts()["decode_attention"] == 1
@@ -383,12 +393,15 @@ def test_decode_kernel_row_without_keys_is_zero(dev, dtype, S):
                                **TOL[dtype])
 
 
-def _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens, seed=6):
+def _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens, seed=6,
+                  kv_dtype=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     b = len(lens)
     n_pages = b * max_pages + 1
-    kpool = _randn(gen, (n_pages, page, nkv, hd), dtype, dev)
-    vpool = _randn(gen, (n_pages, page, nkv, hd), dtype, dev)
+    kpool = to_kv(_randn(gen, (n_pages, page, nkv, hd), dtype, dev),
+                  kv_dtype or dtype)
+    vpool = to_kv(_randn(gen, (n_pages, page, nkv, hd), dtype, dev),
+                  kv_dtype or dtype)
     q = _randn(gen, (b, nq, hd), dtype, dev)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
@@ -402,8 +415,9 @@ def _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens, seed=6):
 
 
 def _check_paged(dev, dtype, page, max_pages, nq, nkv, hd, lens,
-                 window=None):
-    args = _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens)
+                 window=None, kv_dtype=None):
+    args = _paged_inputs(dev, dtype, page, max_pages, nq, nkv, hd, lens,
+                         kv_dtype=kv_dtype)
     ops.reset_launch_counts()
     out = paged_decode_attention(*args, window=window)
     assert ops.launch_counts()["paged_decode_attention"] == 1
@@ -489,9 +503,160 @@ def test_decode_wrappers_reject_what_the_kernels_do_not_take(dev):
         paged_decode_attention(args[0], args[1], pb, *args[3:])
 
 
+# -- the decode pair on fp8 K/V (an fp8 cache or pool, read as it is): the
+# cases above with K/V in float8_e4m3fn under f32 and bf16 queries; the
+# plain versions widen K/V to q's dtype, so the tolerances are q's
+
+DENSE_CASES = [
+    dict(S=64, nq=4, nkv=2, hd=64, lens=[60, 64]),
+    dict(S=100, nq=8, nkv=1, hd=32, lens=[95]),
+    dict(S=48, nq=4, nkv=4, hd=64, lens=[43, 48], window=16),
+    dict(S=37, nq=6, nkv=2, hd=128, lens=[32, 37, 1]),
+    dict(S=300, nq=24, nkv=3, hd=128, lens=[300, 295]),     # g = 8
+    dict(S=700, nq=8, nkv=2, hd=128, lens=[700, 333, 65]),
+    dict(S=2500, nq=4, nkv=1, hd=64, lens=[2500, 2431]),
+    dict(S=1024, nq=4, nkv=2, hd=64, lens=[1024, 700], window=100),
+    dict(S=300, nq=8, nkv=2, hd=128, cur=[1000, 299, 450]),
+    dict(S=600, nq=4, nkv=1, hd=32, cur=[1500, 2000], window=200),
+]
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_fp8_matches_plain(dev, case, dtype):
+    S = case["S"]
+    if "cur" in case:
+        rows, qp = [_ring_pos(S, c) for c in case["cur"]], case["cur"]
+    else:
+        rows, qp = _prefix_rows(S, case["lens"]), [n - 1 for n in case["lens"]]
+    _check_dense(dev, dtype, S, case["nq"], case["nkv"], case["hd"], rows, qp,
+                 case.get("window"), kv_dtype=F8)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_fp8_group_widths(dev, dtype, g, hd):
+    S, nkv = 600, 2
+    _check_dense(dev, dtype, S, g * nkv, nkv, hd,
+                 _prefix_rows(S, [600, 257]), [599, 256], kv_dtype=F8)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_fp8_splits_longer_than_a_row_table(dev, dtype,
+                                                          window):
+    S, b = 3500, 8
+    rows = _prefix_rows(S, [3500, 3001, 2300, 1100, 1025, 1024, 64, 1])
+    rows[7], qp = _ring_pos(S, 9000), [3499, 3000, 2299, 1099, 1024, 1023,
+                                       63, 9000]
+    _check_dense(dev, dtype, S, 32, 16, 64, rows, qp, window, kv_dtype=F8)
+
+
+@pytest.mark.parametrize("S", [100, 600])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_fp8_row_without_keys_is_zero(dev, dtype, S):
+    rows = _prefix_rows(S, [0, S - 7, S])
+    args = _dense_inputs(dev, dtype, S, 8, 2, 64, rows, [5, S - 8, -1],
+                         kv_dtype=F8)
+    out = decode_attention(*args)
+    assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
+    torch.testing.assert_close(out[1], decode_attention_ref(*args)[1],
+                               **TOL[dtype])
+
+
+PAGED_CASES = [
+    dict(page=16, max_pages=4, nq=4, nkv=2, hd=64, lens=[64, 1]),
+    dict(page=8, max_pages=6, nq=8, nkv=1, hd=32, lens=[48, 1, 8]),
+    dict(page=16, max_pages=8, nq=4, nkv=4, hd=64, lens=[128, 9], window=20),
+    dict(page=32, max_pages=3, nq=6, nkv=2, hd=128, lens=[95]),
+    dict(page=16, max_pages=40, nq=8, nkv=2, hd=128, lens=[640, 256, 333]),
+    dict(page=16, max_pages=160, nq=4, nkv=1, hd=64, lens=[2555, 1]),
+    dict(page=24, max_pages=50, nq=4, nkv=2, hd=64, lens=[1200, 999],
+         window=150),
+    dict(page=8, max_pages=100, nq=8, nkv=4, hd=32, lens=[800, 555],
+         window=70),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_fp8_matches_plain(dev, case, dtype):
+    _check_paged(dev, dtype, case["page"], case["max_pages"], case["nq"],
+                 case["nkv"], case["hd"], case["lens"], case.get("window"),
+                 kv_dtype=F8)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_fp8_group_widths(dev, dtype, g, hd):
+    _check_paged(dev, dtype, 16, 40, g * 2, 2, hd, [640, 300], kv_dtype=F8)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_fp8_splits_longer_than_a_row_table(dev, dtype,
+                                                         window):
+    _check_paged(dev, dtype, 16, 219, 32, 16, 64,
+                 [3504, 3001, 2300, 1100, 1025, 1024, 64, 1], window,
+                 kv_dtype=F8)
+
+
+@pytest.mark.parametrize("max_pages", [4, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_fp8_slot_without_keys_is_zero(dev, dtype, max_pages):
+    lens = [0, max_pages * 16 - 3, 0]
+    args = _paged_inputs(dev, dtype, 16, max_pages, 8, 2, 64, lens,
+                         kv_dtype=F8)
+    out = paged_decode_attention(*args)
+    assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
+    torch.testing.assert_close(out[1], paged_decode_attention_ref(*args)[1],
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [64, 1500])          # one split, several
+def test_fp8_kernels_read_nan_as_the_plain_versions_do(dev, S):
+    """A K value past e4m3's range is stored as NaN (to_kv); the row it
+    is a key of gives NaN, in the kernel as in the plain version."""
+    args = _dense_inputs(dev, torch.bfloat16, S, 4, 2, 64,
+                         _prefix_rows(S, [S, S]), [S - 1, S - 1])
+    k = args[1].clone()
+    k[0, 10, 1, 5] = 1e4
+    k = to_kv(k, F8)
+    v = to_kv(args[2], F8)
+    out = decode_attention(args[0], k, v, *args[3:])
+    ref = decode_attention_ref(args[0], k, v, *args[3:])
+    assert torch.isnan(out[0, 2:]).all() and torch.isnan(ref[0, 2:]).all()
+    torch.testing.assert_close(out[1], ref[1], **TOL[torch.bfloat16])
+    assert not torch.isnan(out[0, :2]).any()
+
+
+def test_wrappers_refuse_mixed_kv_pairings(dev):
+    """K/V in q's dtype or in e4m3 for the decode pair: q f32 with bf16
+    K/V (not ported) and K and V of two dtypes raise; flash takes no
+    fp8, directly or through ops.attention."""
+    q, k, v, qp, kp = _dense_inputs(dev, torch.float32, 64, 4, 2, 64,
+                                    _prefix_rows(64, [64]), [63])
+    with pytest.raises(ValueError, match="not supported"):
+        decode_attention(q, k.bfloat16(), v.bfloat16(), qp, kp)
+    with pytest.raises(ValueError, match="not supported"):
+        decode_attention(q, to_kv(k, F8), v, qp, kp)
+    args = _paged_inputs(dev, torch.float32, 16, 4, 4, 2, 64, [50])
+    with pytest.raises(ValueError, match="not supported"):
+        paged_decode_attention(args[0], args[1].bfloat16(),
+                               args[2].bfloat16(), *args[3:])
+    qf = q[:, None].expand(1, 8, 4, 64).contiguous()
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    with pytest.raises(ValueError, match="not supported"):
+        flash_attention(qf, to_kv(k, F8), to_kv(v, F8), pos, kp)
+    with pytest.raises(ValueError, match="fp8"):
+        ops.attention(qf, to_kv(k, F8), to_kv(v, F8), pos, kp)
+
+
 # -- CUDA-graph steps -----------------------------------------------------
 
-def _graph_engine(dev, kind, dtype):
+def _graph_engine(dev, kind, dtype, kv_dtype=None):
     """A small engine of two slots on the card: reduced llava (dense, or
     paged on pages of 16 with preemption) or mamba2 with the kernel's
     state dim 64."""
@@ -505,7 +670,8 @@ def _graph_engine(dev, kind, dtype):
                          device=dev, dtype=dtype)
     opts = (dict(paged=True, page_size=16, preemption=True)
             if kind == "paged" else {})
-    return Engine(cfg, params, max_batch=2, max_len=64, device=dev, **opts)
+    return Engine(cfg, params, max_batch=2, max_len=64, device=dev,
+                  kv_dtype=kv_dtype, **opts)
 
 
 def _prefill(eng, req):
@@ -580,6 +746,33 @@ def test_graph_replay_equals_eager_bitwise(dev, replay_checks, kind, steps,
         eng.assert_no_page_leaks()
 
 
+@pytest.mark.parametrize("kind,steps", [
+    ("dense", {"decode", "dense_prefill"}),
+    ("paged", {"decode"}),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fp8_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
+                                              steps, dtype):
+    """The decode steps and the dense prefill over fp8 caches replay to
+    what the eager step computes, bitwise (fp8 caches compared as bytes),
+    across page boundaries and a swap-out and in; the decode kernel reads
+    the fp8 cache or pool."""
+    eng = _graph_engine(dev, kind, dtype, kv_dtype=F8)
+    assert all(t.dtype == F8 for e in eng.caches["attn"] for t in e[:2])
+    ops.reset_launch_counts()
+    _serve(eng, _requests(eng, image=kind == "dense"),
+           preempt_at=3 if kind == "paged" else None)
+    assert set(replay_checks) == steps and replay_checks["decode"] >= 15
+    wrapper = ("paged_decode_attention" if kind == "paged"
+               else "decode_attention")
+    assert ops.launch_counts()[wrapper] > 0
+    assert eng.graph_census()["decode"][f"{wrapper} nodes"] == \
+        eng.cfg.n_layers
+    if kind == "paged":
+        assert eng.preempt_count == 1 and eng.resume_count == 1
+        eng.assert_no_page_leaks()
+
+
 @pytest.mark.parametrize("kind", ["dense", "mamba2"])
 def test_held_dense_prefill_payload_survives_replays(dev, kind):
     eng = _graph_engine(dev, kind, torch.bfloat16)
@@ -643,6 +836,25 @@ def test_replay_over_reallocated_state_raises(dev, kind):
     eng.caches["len"] = eng.caches["len"].clone()
     with pytest.raises(RuntimeError, match="reallocated"):
         eng.decode_step()
+
+
+def test_no_garbage_collection_inside_a_capture(dev):
+    """The collector could free a dropped engine's CUDA graph inside a
+    capture, which invalidates it: the runner keeps it off there (and
+    only there)."""
+    seen = []
+
+    def fn(x, y):
+        seen.append(gc.isenabled())
+        return x * y
+
+    step = GraphStep(fn)
+    x = torch.ones(4, device=dev)
+    assert gc.isenabled()
+    step((x,), torch.full((4,), 2.0, device=dev))      # eager, then capture
+    out = step((x,), torch.full((4,), 3.0, device=dev))    # replay
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(out, torch.full((4,), 3.0, device=dev))
 
 
 def test_merge_counters_exist_before_the_first_capture(dev):

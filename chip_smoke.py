@@ -22,8 +22,12 @@ Phases (every failure raises and ends the run with a non-zero code):
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged,
-     with f32 caches and with fp8 (float8_e4m3fn) K/V (the GPU's decode
-     steps then read the CPU prefill's fp8 bytes);
+     with f32 caches and with fp8 (float8_e4m3fn) K/V: the cast at its
+     edges on the GPU equals the CPU's bitwise, the GPU prefill's fp8
+     bytes equal the reference's cast of its own f32 K/V, and differ from
+     the CPU prefill's only as neighbouring values (+0 and -0 being one)
+     where the f32 K/V differ; the
+     GPU's decode steps then read the CPU prefill's fp8 bytes;
   3b. model parity: mamba2-370m at full width and 2 layers in f32, a
      1000-token prompt padded to 2048 plus 4 teacher-forced decode steps,
      CPU against GPU;
@@ -35,7 +39,7 @@ Phases (every failure raises and ends the run with a non-zero code):
      the engine's call, a capture's warm-up or a replay; 5 requests
      through 4 slots, so the steps cross page boundaries and a released
      slot takes a new request (the paged engine also swaps one out and
-     in);
+     in); the fp8 cases' launches are counted;
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -606,6 +610,7 @@ def model_parity(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.models import frontend as FE
     from repro_torch.models.model import decode_forward, prefill_forward
+    from repro_torch.models.layers import to_kv
     from repro_torch.models.params import init_params, map_tree
     from repro_torch.models.transformer import (cache_tensors, clone_caches,
                                                 make_caches)
@@ -625,10 +630,12 @@ def model_parity(torch, dev):
     patches = FE.stub_embeddings(cfg, b"chip-smoke-image", IMAGE_TOKENS)
     forced = [5, 17, 42, 99]
 
-    def run(params, device, layout, kv_dtype, prefilled=None):
+    def run(params, device, layout, kv_dtype, prefilled=None, f32=None):
         """Logits of the prefill and the forced decode steps, and the
         caches as the prefill left them. ``prefilled``: caches whose fp8
-        K/V the decode steps read instead of this prefill's own."""
+        K/V the decode steps read instead of this prefill's own, after
+        ``check_fp8`` has held this prefill's fp8 bytes against them and
+        against ``f32``, the two sides' caches of the f32 run."""
         feats = (patches.to(device) @ params["projector"]).float()[None]
         kw = {}
         if layout == "paged":
@@ -645,17 +652,11 @@ def model_parity(torch, dev):
         out = [logits.cpu()]
         after = clone_caches(caches)
         if prefilled is not None:
-            n_diff = 0
+            check_fp8(layout, caches, prefilled, *f32)
             for mine, theirs in zip(cache_tensors(caches),
                                     cache_tensors(prefilled)):
                 if mine.dtype == f8:
-                    theirs = theirs.to(device)
-                    n_diff += int((mine.view(torch.uint8)
-                                   != theirs.view(torch.uint8)).sum())
-                    mine.copy_(theirs)
-            log(f"    {n_diff} of the fp8 K/V bytes of the two prefills "
-                f"differ (f32 K/V on the two sides of an e4m3 rounding "
-                f"boundary); the GPU decodes over the CPU's")
+                    mine.copy_(theirs.to(device))
         for t in forced:
             logits, caches = decode_forward(
                 params, cfg, torch.tensor([t], dtype=torch.int32,
@@ -663,19 +664,80 @@ def model_parity(torch, dev):
             out.append(logits.cpu())
         return out, after
 
+    def check_fp8(layout, gpu, cpu, cpu32, gpu32):
+        """The GPU prefill's fp8 K/V bytes are ``to_kv`` on the CPU (the
+        reference's cast, held bitwise to JAX's by the CPU tests) of the
+        GPU's own f32 K/V from the f32 run; where they differ from the
+        CPU prefill's bytes, the two sides' f32 K/V differ too and the
+        bytes are neighbouring values (+0 and -0 being one). Page 0
+        (trash) of a pool is not compared."""
+        trash = 1 if layout == "paged" else 0
+        n_diff = n_zero = n_all = 0
+        for g8, c8, c32, g32 in zip(cache_tensors(gpu), cache_tensors(cpu),
+                                    cache_tensors(cpu32), gpu32):
+            if g8.dtype != f8:
+                continue
+            g8, c8 = g8[trash:].cpu().view(torch.uint8), c8[trash:].view(
+                torch.uint8)
+            c32, g32 = c32[trash:], g32[trash:]
+            want = to_kv(g32, f8).view(torch.uint8)
+            bad = int((g8 != want).sum())
+            assert bad == 0, (layout, "GPU fp8 bytes != to_kv of its f32 "
+                              "K/V", bad)
+            diff = g8 != c8
+            assert bool((c32[diff] != g32[diff]).all()), (layout, "fp8 bytes "
+                                                          "differ where the "
+                                                          "f32 K/V agree")
+            steps = (value_order(g8[diff]) - value_order(c8[diff])).abs()
+            assert bool((steps <= 1).all()), (layout, steps.max().item())
+            n_diff += int(diff.sum())
+            n_zero += int((steps == 0).sum())
+            n_all += diff.numel()
+        log(f"    {layout} fp8: the GPU's K/V bytes equal to_kv of its f32 "
+            f"K/V; {n_diff} of {n_all} bytes differ from the CPU prefill's "
+            f"where the f32 K/V differ, each a neighbouring value ({n_zero} "
+            f"of them +0 against -0); the GPU decodes over the CPU's")
+
+    def value_order(b):
+        """e4m3 bytes as their rank on the number line (+0 and -0 one
+        value), so that neighbouring values differ by 1."""
+        mag = (b & 0x7F).int()
+        return torch.where(b >= 0x80, -mag, mag)
+
+    # the cast at the edges, from f32 and bf16: the GPU's to_kv (NaN past
+    # 464, never Tensor.to's saturation to 448) is the CPU's, bitwise
+    edges = torch.tensor([0.0, 448.0, 464.0, 465.0, 480.0, 1e4, float("inf"),
+                          float("nan"), 2.0 ** -9, 1.5 * 2.0 ** -9, 0.3, 1.7])
+    edges = torch.cat([edges, -edges, 300 * torch.randn(
+        4096, generator=torch.Generator().manual_seed(3))])
+    for dt in (torch.float32, torch.bfloat16):
+        x = edges.to(dt)
+        same = torch.equal(to_kv(x.to(dev), f8).cpu().view(torch.uint8),
+                           to_kv(x, f8).view(torch.uint8))
+        log(f"  to_kv {dt} -> e4m3 on the GPU == on the CPU, bitwise: {same}")
+        assert same, dt
+
     # f32 caches, then K/V stored in fp8 (the decode kernels read them
     # as they are; flash gets the unrounded prefill K/V). The two
     # prefills' fp8 bytes differ wherever the CPU's and the GPU's f32 K/V
-    # straddle a rounding boundary, so with fp8 the GPU's decode steps
-    # read the CPU prefill's cache: both sides decode over the same bytes
+    # straddle a rounding boundary (check_fp8), so with fp8 the GPU's
+    # decode steps read the CPU prefill's cache: both sides decode over
+    # the same bytes
+    f32_caches = {}
     for layout, kv_dtype in (("dense", None), ("paged", None),
                              ("dense fp8", f8), ("paged fp8", f8)):
+        kind = layout.split()[0]
         t0 = time.perf_counter()
-        ref, prefilled = run(params_cpu, "cpu", layout.split()[0], kv_dtype)
+        ref, prefilled = run(params_cpu, "cpu", kind, kv_dtype)
         t1 = time.perf_counter()
-        got, _ = run(params_gpu, dev, layout.split()[0], kv_dtype,
-                     prefilled if kv_dtype == f8 else None)
+        got, after = run(params_gpu, dev, kind, kv_dtype,
+                         prefilled if kv_dtype == f8 else None,
+                         f32_caches.get(kind))
         torch.cuda.synchronize()
+        if kv_dtype is None:
+            f32_caches[kind] = (prefilled,
+                                [t.cpu() for t in cache_tensors(after)])
+        del after
         for i, (a, b) in enumerate(zip(got, ref)):
             err = (a - b).abs().max().item()
             ok = torch.allclose(a, b, **PARITY_TOL)
@@ -751,8 +813,11 @@ def graph_parity(torch, dev):
     """Every call of a captured step runs eagerly on a copy of the caches
     too, and the two must agree bitwise (logits and every cache tensor,
     ``graphs.held_to_eager``); counts the comparisons in which the
-    engine's call was a replay."""
+    engine's call was a replay. Returns the launches of each fp8 case
+    (set to 0 just before it is served, read just after; the eager
+    checks' launches do not count)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import frontend as FE
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import Engine
@@ -760,7 +825,7 @@ def graph_parity(torch, dev):
     from repro_torch.serving.request import Request
     from repro_torch.serving.steps import make_encode_fn
 
-    replays = {}
+    replays, fp8_counts = {}, {}
     f8 = dict(kv_dtype=torch.float8_e4m3fn)
     # (label, arch, max_len, engine options, prompt lengths, image)
     cases = [("llava dense", "llava-next-mistral-7b", MAX_LEN, {},
@@ -795,6 +860,8 @@ def graph_parity(torch, dev):
                             mm_pos=0)
                     for i, n in enumerate(prompts)]
             queue, step = list(reqs), 0
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
             while queue or eng.n_active or eng.preempted:
                 while queue and eng.free_slots():
                     r = queue.pop(0)
@@ -811,6 +878,8 @@ def graph_parity(torch, dev):
                 eng.decode_step()
                 step += 1
             torch.cuda.synchronize()
+            if "kv_dtype" in opts:
+                fp8_counts[label] = ops.launch_counts()
             assert all(len(r.output_tokens) == r.max_new_tokens
                        for r in reqs), label
             if eng.paged:
@@ -828,7 +897,10 @@ def graph_parity(torch, dev):
             "llava dense fp8 dense_prefill", "llava paged fp8 decode",
             "mamba2 decode", "mamba2 dense_prefill"}
     assert set(replays) == want, replays
-    return replays
+    log(f"  launches of the fp8 cases: {fp8_counts}")
+    assert fp8_counts["llava dense fp8"]["decode_attention"] > 0
+    assert fp8_counts["llava paged fp8"]["paged_decode_attention"] > 0
+    return fp8_counts
 
 
 # ---------------------------------------------------------------------------
@@ -879,7 +951,7 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=max_len,
                          device=dev, **kw)
     if kv_dtype is not None:
-        with_kv_dtype(cluster, params, kv_dtype)
+        with_kv_dtype(cluster, kv_dtype)
     engines = [cluster.prefill_engine, *cluster.decode_engines]
     want = kv_dtype or params["embed"].dtype
     assert all(c.k.dtype == want for e in engines for c in e.caches["attn"]
@@ -1038,10 +1110,11 @@ def main() -> int:
         log("[3b] model parity, mamba2-370m full width, 2 layers, f32, "
             "CPU plain vs GPU ssd_scan")
         ssm_parity(torch, dev)
+    graph_counts = None
     if "3c" in phases:
         log("[3c] CUDA graphs: replay vs eager, bitwise, full width, 2 "
             "layers, bf16")
-        graph_parity(torch, dev)
+        graph_counts = graph_parity(torch, dev)
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
@@ -1143,12 +1216,23 @@ def main() -> int:
             rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "call_ms", "library_call_ms")}
-        if "fp8" in r:          # K/V in float8_e4m3fn; launches: phase 5f
+        if "fp8" in r:
+            # K/V in float8_e4m3fn. Launches: paged decode in phase 5f's
+            # serving; dense decode in phase 3c's dense fp8 engine (no
+            # serving phase decodes a dense fp8 cache); null where that
+            # phase did not run
             rows[-1]["fp8"] = {key: r["fp8"][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "call_ms", "library_call_ms")}
-            rows[-1]["fp8"]["launches"] = serve_stats.get(
-                "paged fp8", {}).get("counts", {}).get(kname, 0)
+            if kname == "paged_decode_attention":
+                run = serve_stats.get("paged fp8")
+                n = run["counts"][kname] if run else None
+                where = "5f"
+            else:
+                n = (graph_counts["llava dense fp8"][kname]
+                     if graph_counts else None)
+                where = "3c"
+            rows[-1]["fp8"].update(launches=n, launches_in=where)
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

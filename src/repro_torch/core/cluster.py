@@ -199,18 +199,19 @@ class EPDCluster:
         # the shared pages and the transfer planner charges suffix-only)
         # and the chunked-prefill window (each chunk's pages stream to
         # Decode while the next chunk computes).
-        self.prefill_engine = Engine(cfg, params, max_batch=1,
-                                     max_len=max_len, paged=paged,
-                                     page_size=page_size,
-                                     prefix_cache=prefix_cache,
-                                     n_pool_pages=n_prefill_pool_pages,
-                                     chunked_prefill=chunked_prefill,
-                                     prefill_chunk=prefill_chunk,
-                                     name="P0", tracer=self.tracer,
-                                     device=self.device,
-                                     cache_dtype=cache_dtype,
-                                     metrics=self.metrics,
-                                     accountant=self.acc)
+        self._params = params
+        self._cache_dtype = cache_dtype
+        self._engine_opts = {
+            "prefill": dict(max_batch=1, max_len=max_len, paged=paged,
+                            page_size=page_size, prefix_cache=prefix_cache,
+                            n_pool_pages=n_prefill_pool_pages,
+                            chunked_prefill=chunked_prefill,
+                            prefill_chunk=prefill_chunk),
+            "decode": dict(max_batch=max_batch, max_len=max_len,
+                           paged=paged, page_size=page_size,
+                           n_pool_pages=n_decode_pool_pages,
+                           preemption=preemption, faults=self.injector)}
+        self.prefill_engine = self.make_engine("prefill", 0)
         # Decode instances: preemption=True turns decode-side pool
         # pressure into page-level swap-to-host + resume instead of a
         # pool error; n_decode_pool_pages sizes the pool below
@@ -218,15 +219,8 @@ class EPDCluster:
         # crash re-route arm a surviving instance to land on.
         if n_decode < 1:
             raise ValueError("need n_decode >= 1")
-        self.decode_engines = [
-            Engine(cfg, params, max_batch=max_batch, max_len=max_len,
-                   paged=paged, page_size=page_size,
-                   n_pool_pages=n_decode_pool_pages,
-                   preemption=preemption, faults=self.injector,
-                   name=f"D{i}", tracer=self.tracer,
-                   device=self.device, cache_dtype=cache_dtype,
-                   metrics=self.metrics, accountant=self.acc)
-            for i in range(n_decode)]
+        self.decode_engines = [self.make_engine("decode", i)
+                               for i in range(n_decode)]
         self.dead: set = set()           # indices of crashed instances
         self.report = ClusterReport(metrics=self.metrics)
         self._pending: List[Request] = []
@@ -245,6 +239,19 @@ class EPDCluster:
         # engine names and fed chunk-granular occupancy as chunks
         # actually execute, not callback estimates
         self.router: Optional[Router] = None
+
+    def make_engine(self, role: str, i: int, **overrides) -> Engine:
+        """Engine ``i`` of ``role`` ("prefill" or "decode") as this cluster
+        builds it: its options, tracer, metrics, accountant, device and
+        cache dtype, with ``overrides`` on top (``kv_dtype`` for the
+        launcher's ``--kv-fp8``)."""
+        kw = dict(self._engine_opts[role],
+                  name=("P" if role == "prefill" else "D") + str(i),
+                  tracer=self.tracer, device=self.device,
+                  cache_dtype=self._cache_dtype, metrics=self.metrics,
+                  accountant=self.acc)
+        kw.update(overrides)
+        return Engine(self.cfg, self._params, **kw)
 
     def graph_census(self) -> Dict[str, Any]:
         """``graphs.census`` of the CUDA-graph steps of the prefill and

@@ -17,6 +17,7 @@ is not ported yet (see ROADMAP.md).
 from __future__ import annotations
 
 import argparse
+import gc
 
 import torch
 
@@ -40,33 +41,30 @@ def smoke_requests(cfg, image_tokens: int = 0):
     return reqs
 
 
-def with_kv_dtype(cluster, params, kv_dtype):
+def with_kv_dtype(cluster, kv_dtype):
     """Rebuild ``cluster``'s prefill engine and its ``decode_engines`` with
     the K/V of every attention layer stored in ``kv_dtype`` (the
-    reference's ``--kv-fp8``), each with the options it had, built as
-    ``EPDCluster`` builds them: the cluster's tracer, metrics, accountant
-    and device, the engines' cache dtype, the fault injector on the
-    decode side. The reference's launcher assigns the read-only
-    ``decode_engine`` property instead, which raises AttributeError."""
-    from repro_torch.serving.engine import Engine
+    reference's ``--kv-fp8``), each through ``cluster.make_engine``, so
+    with the options, tracer, metrics and device the cluster gave it.
+    Each old engine is dropped and collected before its replacement is
+    built, so the two pools are never held at once. The reference's
+    launcher assigns the read-only ``decode_engine`` property instead,
+    which raises AttributeError."""
+    def release():
+        # dropped engines hold their CUDA graphs in reference cycles
+        gc.collect()
+        if cluster.device.type == "cuda":
+            torch.cuda.empty_cache()
 
-    def rebuild(eng, **kw):
-        return Engine(
-            cluster.cfg, params, max_batch=eng.max_batch,
-            max_len=eng.max_len, cache_dtype=eng.cache_dtype,
-            kv_dtype=kv_dtype, device=cluster.device, paged=eng.paged,
-            page_size=eng.page_size,
-            n_pool_pages=eng.pool.n_pages if eng.paged else None,
-            prefix_cache=eng.prefix_cache is not None,
-            chunked_prefill=eng.chunked_prefill,
-            prefill_chunk=eng.prefill_chunk, name=eng.name,
-            tracer=cluster.tracer, metrics=cluster.metrics,
-            accountant=cluster.acc, **kw)
-
-    cluster.prefill_engine = rebuild(cluster.prefill_engine)
-    cluster.decode_engines = [
-        rebuild(e, preemption=e.preemption, faults=cluster.injector)
-        for e in cluster.decode_engines]
+    cluster.prefill_engine = None
+    release()
+    cluster.prefill_engine = cluster.make_engine("prefill", 0,
+                                                 kv_dtype=kv_dtype)
+    for i in range(len(cluster.decode_engines)):
+        cluster.decode_engines[i] = None
+        release()
+        cluster.decode_engines[i] = cluster.make_engine("decode", i,
+                                                        kv_dtype=kv_dtype)
     return cluster
 
 
@@ -87,7 +85,7 @@ def run_real(args):
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=args.max_len,
                          kv_scheme=args.kv_scheme, device=device)
     if args.kv_fp8:
-        with_kv_dtype(cluster, params, torch.float8_e4m3fn)
+        with_kv_dtype(cluster, torch.float8_e4m3fn)
     mm_tokens = cfg.frontend.tokens_per_item if cfg.frontend else 0
     reqs = []
     for i in range(args.requests):

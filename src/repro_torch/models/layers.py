@@ -27,8 +27,11 @@ def to_kv(x, dtype):
     KV cache or pool goes through here. For float8_e4m3fn it is the
     reference's ``astype``: NaN (with x's sign) where |x| > 464 or x is
     infinite, round-to-nearest-even elsewhere; ``Tensor.to`` would
-    saturate to +-448 instead. Any other dtype is a plain ``.to``."""
+    saturate to +-448 instead. Any other dtype is a plain ``.to``. The
+    cast goes through f32 (exact from bf16, so one rounding, as JAX's):
+    CUDA's bf16 copysign or cast does not keep every NaN's sign."""
     if dtype == FP8 and x.dtype != FP8:
+        x = x.float()
         x = torch.copysign(x.masked_fill(x.abs() > _FP8_LIMIT, float("nan")),
                            x)
     return x.to(dtype)

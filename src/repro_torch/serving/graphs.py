@@ -208,7 +208,8 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def held_to_eager() -> Iterator[Dict[str, int]]:
     """Within the block, every call of a graph step first runs the step
     eagerly on copies of its caches, then makes the real call, and
-    raises unless the two give the same logits and caches, bitwise.
+    raises unless the two give the same logits and caches, bitwise. The
+    launch counts (``ops.launch_counts``) hold the real calls only.
     Yields the number of real calls per step (``fn.__name__``) that were
     replays. A check of the runner, not for serving: it runs each step
     twice."""
@@ -217,7 +218,11 @@ def held_to_eager() -> Iterator[Dict[str, int]]:
 
     def checked(self, state, *inputs):
         params, caches = state
+        counts = K.launch_counts()
         want_logits, want = self.fn(params, clone_caches(caches), *inputs)
+        # the eager run is the check's own: its launches do not count
+        K.reset_launch_counts()
+        K.add_launches(counts)
         before = self.replays
         logits, got = real(self, state, *inputs)
         if not (torch.equal(logits, want_logits) and all(

@@ -615,6 +615,21 @@ def test_paged_kernel_fp8_slot_without_keys_is_zero(dev, dtype, max_pages):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_to_kv_on_the_card_equals_the_cpu_cast(dev, dtype):
+    """The cast into an fp8 cache gives the same bytes on the card as on
+    the CPU (held bitwise to JAX's there): NaN with x's sign past 464 and
+    for +-inf, round-to-nearest-even elsewhere, from f32 and from bf16."""
+    edges = torch.tensor([0.0, 448.0, 463.9, 464.0, 465.0, 480.0, 1e4,
+                          float("inf"), float("nan"), 2.0 ** -9,
+                          1.5 * 2.0 ** -9, 0.3, 1.7])
+    gen = torch.Generator().manual_seed(5)
+    x = torch.cat([edges, -edges, 300 * torch.randn(20_000, generator=gen)])
+    x = x.to(dtype)
+    got = to_kv(x.to(dev), F8).cpu().view(torch.uint8)
+    assert torch.equal(got, to_kv(x, F8).view(torch.uint8))
+
+
 @pytest.mark.parametrize("S", [64, 1500])          # one split, several
 def test_fp8_kernels_read_nan_as_the_plain_versions_do(dev, S):
     """A K value past e4m3's range is stored as NaN (to_kv); the row it

@@ -15,6 +15,8 @@ JAX package's.
 Inputs are made with numpy from a seed; fp8 arrays cross between the
 packages as their bytes.
 """
+import weakref
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -398,7 +400,7 @@ def test_fp8_engine_matches_reference(model, mode):
 def _fp8_cluster(cfg, pt, max_batch, **kw):
     cluster = EPDCluster(cfg, pt, max_batch=max_batch, max_len=64,
                          device="cpu", **kw)
-    return with_kv_dtype(cluster, pt, F8)
+    return with_kv_dtype(cluster, F8)
 
 
 def _no_leaks(cluster):
@@ -465,7 +467,7 @@ def test_kv_fp8_launcher_rebuilds_engines_not_decode_engine():
     cluster = EPDCluster(cfg, pt, max_batch=2, max_len=32, device="cpu",
                          n_decode=2, preemption=True, **CLUSTER)
     old = [cluster.prefill_engine, *cluster.decode_engines]
-    with_kv_dtype(cluster, pt, F8)
+    with_kv_dtype(cluster, F8)
     new = [cluster.prefill_engine, *cluster.decode_engines]
     for a, b in zip(old, new):
         assert a is not b and a.name == b.name
@@ -479,6 +481,34 @@ def test_kv_fp8_launcher_rebuilds_engines_not_decode_engine():
             a.cache_dtype)
         assert b.metrics is cluster.metrics and b.tracer is cluster.tracer
     assert cluster.decode_engine is cluster.decode_engines[0]
+
+
+def test_kv_fp8_launcher_drops_each_engine_before_building_its_successor():
+    """``with_kv_dtype`` never holds an engine and its replacement at
+    once: when ``make_engine`` builds one, the engine it replaces is
+    already collected, so the bf16 and fp8 pools never coexist."""
+    cfg = get_config("smollm-135m").reduced()
+    pt = from_numpy_params(jax.tree.map(
+        np.asarray, jax_init_params(jax_get_config("smollm-135m").reduced(),
+                                    jax.random.PRNGKey(0))), cfg,
+        device="cpu")
+    cluster = EPDCluster(cfg, pt, max_batch=2, max_len=32, device="cpu",
+                         n_decode=2, **CLUSTER)
+    old = {("prefill", 0): weakref.ref(cluster.prefill_engine),
+           **{("decode", i): weakref.ref(e)
+              for i, e in enumerate(cluster.decode_engines)}}
+    make, built = cluster.make_engine, []
+
+    def checked(role, i, **kw):
+        assert old[role, i]() is None, (role, i)
+        built.append((role, i))
+        return make(role, i, **kw)
+
+    cluster.make_engine = checked
+    with_kv_dtype(cluster, F8)
+    assert built == [("prefill", 0), ("decode", 0), ("decode", 1)]
+    assert all(e.kv_dtype == F8 for e in
+               [cluster.prefill_engine, *cluster.decode_engines])
 
 
 # ---------------------------------------------------------------------------

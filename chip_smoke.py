@@ -31,10 +31,18 @@ Phases (every failure raises and ends the run with a non-zero code):
   3b. model parity: mamba2-370m at full width and 2 layers in f32, a
      1000-token prompt padded to 2048 plus 4 teacher-forced decode steps,
      CPU against GPU;
+  3m. model parity: mixtral-8x7b at full width and 2 layers in f32 at
+     capacity factor 1.25, a 4352-token prompt (past the 4096 window)
+     padded to 4608 plus 4 teacher-forced decode steps, dense and paged,
+     CPU against GPU layer by layer (each GPU layer fed the CPU's input):
+     the MoE routing (top-k experts, kept selections) agrees except at
+     near-ties of the router's probabilities, counted and printed, and
+     outputs and logits agree wherever routing does;
   3c. CUDA graphs: at full width and 2 layers in bf16, every call of a
      captured step (llava dense decode and dense prefill with an image
      and without, llava paged decode, each also over fp8 K/V, mamba2
-     decode and 2048 prefill) is
+     decode and 2048 prefill, mixtral dense decode and 6144 prefill and
+     paged decode, one request decoding past the window) is
      also run eagerly on a copy of its caches and held bitwise against
      the engine's call, a capture's warm-up or a replay; 5 requests
      through 4 slots, so the steps cross page boundaries and a released
@@ -47,6 +55,14 @@ Phases (every failure raises and ends the run with a non-zero code):
   5f. serve, paged fp8: phase 5 with the cluster's engines rebuilt to
      store K/V in float8_e4m3fn (``launch/serve.py --kv-fp8``): flash
      prefills over the widened pool, paged decode reads the fp8 pool;
+  4m. serve mixtral-8x7b, dense: EPDCluster at full width and 8 of 32
+     layers (93.4 GB of bf16 weights do not fit the card; 8 layers are
+     23.7 GB) in bf16, max_len 6144, 4 text requests (A 4608 tokens, past
+     the window; B A's first 2048 and 96 of its own; 64; 1024) through
+     submit + run_until_done: windowed flash, windowed dense decode;
+  5m. the same requests on a paged cluster with prefix cache and chunked
+     prefill of 512 through run_continuous (one live prefill, so that B
+     hits A's pages in the prefix cache): windowed paged decode;
   4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
      layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
      through submit + run_until_done, then run_continuous;
@@ -99,6 +115,13 @@ MAX_LEN = 3072
 IMAGE_TOKENS = 2880
 SSM_MAX_LEN = 2048      # mamba2's training context, a multiple of its chunk
 SSM_PROMPTS = (64, 256, 1000, 1900)
+MOE_MAX_LEN = 6144       # past mixtral's 4096 window, a multiple of 512
+MOE_LAYERS = 8           # of 32: 93.4 GB of bf16 weights do not fit 80 GB
+MOE_PROMPT, MOE_PARITY_LEN = 4352, 4608   # phase 3m: prompt, padded length
+MOE_MARGIN = 1e-5        # 3m: a near-tie of router probabilities may flip
+# phases 4m, 5m: A past the window, B A's first 2048 tokens and 96 of its
+# own (a prefix-cache hit on the paged cluster), C and D short
+MOE_PROMPTS = (4608, 2048 + 96, 64, 1024)
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -805,6 +828,153 @@ def ssm_parity(torch, dev):
     release(torch)
 
 
+def moe_parity(torch, dev):
+    """mixtral-8x7b at full width, 2 layers, f32, capacity factor 1.25: a
+    4352-token prompt (past the 4096 window) padded to 4608, then 4
+    teacher-forced decode steps, dense and paged, on the CPU (plain
+    versions) and on the GPU (kernels), layer by layer: each GPU layer is
+    fed the CPU's input, so that a routing flip stays in its layer. The
+    top-k experts and the kept selections of every MoE layer must agree,
+    except at a token where two neighbouring probabilities among the
+    CPU's top k + 1 lie within MOE_MARGIN (a near-tie that the two sides'
+    f32 rounding may break either way) and, in a layer with such a flip,
+    at the selections it pushed past or into capacity. Layer outputs and
+    logits are held to PARITY_TOL at every token whose routing agrees."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.models.transformer import lm_logits, make_caches
+
+    base = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    params_gpu = init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                             device=dev, dtype=torch.float32)
+    params_cpu = map_tree(lambda t: t.cpu(), params_gpu)
+    n, S = MOE_PROMPT, MOE_PARITY_LEN
+    toks = torch.zeros((1, S), dtype=torch.int32)
+    toks[0, :n] = torch.tensor([(7 * i + 3) % cfg.vocab for i in range(n)])
+    forced = [5, 17, 42, 99]
+
+    def layer(params, r, h, positions, caches):
+        """One decoder layer (windowed attention, then MoE) over the cache
+        views of repeat ``r``, as ``run_decoder`` runs it; returns its
+        output, the top-k experts and the kept mask in token order."""
+        blk = params["blocks"][0]
+        pa = {kk: t[r] for kk, t in blk["attn"].items()}
+        pm = {kk: t[r] for kk, t in blk["moe"].items()}
+        c = caches["attn"][0]
+        h, _ = L.attention_block(pa, h, positions, cfg,
+                                 window=cfg.sliding_window,
+                                 cache=tuple(t[r] for t in c),
+                                 cur_len=caches["len"],
+                                 pages=caches.get("pages"))
+        probs, _, eidx = MOE.route(pm, L.rms_norm(h, pm["norm"],
+                                                  cfg.norm_eps), cfg)
+        sort_idx, _, pos, _, _ = MOE.dispatch(eidx, E)
+        keep = torch.zeros_like(pos, dtype=torch.bool).scatter_(
+            1, sort_idx, pos < MOE.capacity(cfg, h.shape[1]))
+        out, _ = MOE.moe_block(pm, h, cfg)
+        return out, probs, eidx, keep.reshape(eidx.shape)
+
+    def compare(label, got, ref, valid):
+        """GPU layer output ``got`` (fed the CPU's input) against the CPU's
+        ``ref``; returns the rows whose routing agrees."""
+        out_g, _, eidx_g, keep_g = (t.cpu() for t in got)
+        out_c, probs_c, eidx_c, keep_c = ref
+        top = torch.topk(probs_c, k + 1, dim=-1).values
+        margin = (top[..., :-1] - top[..., 1:]).min(-1).values
+        flip = (eidx_g != eidx_c).any(-1) & valid
+        kept = (keep_g != keep_c).any(-1) & valid & ~flip
+        near = flip & (margin < MOE_MARGIN)
+        assert bool((near == flip).all()), (
+            label, "routing flip at a margin >= MOE_MARGIN",
+            margin[flip & ~near].tolist())
+        assert not bool(kept.any()) or bool(flip.any()), (
+            label, "kept selections differ with no routing flip",
+            int(kept.sum()))
+        agree = valid & ~flip & ~kept
+        err = (out_g - out_c).abs()[agree].max().item()
+        ok = torch.allclose(out_g[agree], out_c[agree], **PARITY_TOL)
+        flips.append((label, int(flip.sum()), int(kept.sum())))
+        log(f"    {label}: output max_abs_err={err:.3e} over "
+            f"{int(agree.sum())} tokens, routing flips {int(flip.sum())} "
+            f"(margins {[f'{m:.2e}' for m in margin[flip].tolist()]}), kept "
+            f"changed {int(kept.sum())}, drops on the CPU "
+            f"{int((~keep_c & valid[..., None]).sum())} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok and torch.isfinite(out_g[agree]).all(), (label, err)
+        return agree
+
+    def logits(params, h, last):
+        h = L.rms_norm(h[:, last:last + 1], params["final_norm"],
+                       cfg.norm_eps)
+        return lm_logits(params, cfg, h)[:, 0].float()
+
+    def run(layout):
+        kw = {}
+        if layout == "paged":
+            kw = dict(layout="paged", page_size=16, n_pages=1 + S // 16)
+        sides = []
+        for device in ("cpu", dev):
+            caches = make_caches(cfg, 1, S, dtype=torch.float32,
+                                 device=device, **kw)
+            if layout == "paged":
+                caches["pages"][0] = torch.arange(1, 1 + S // 16,
+                                                  dtype=torch.int32)
+            sides.append(caches)
+        idx = torch.arange(S, dtype=torch.int32)[None]
+        steps = [(params_cpu["embed"][toks.long()],
+                  torch.where(idx < n, idx, torch.full_like(idx, -1)), n - 1)]
+        steps += [(params_cpu["embed"][torch.tensor([[t]])],
+                   torch.tensor([[n + i]], dtype=torch.int32), 0)
+                  for i, t in enumerate(forced)]
+        for step, (x, positions, last) in enumerate(steps):
+            valid = positions >= 0
+            h_cpu = x
+            for r in range(cfg.n_repeats):
+                ref = layer(params_cpu, r, h_cpu, positions, sides[0])
+                got = layer(params_gpu, r, h_cpu.to(dev), positions.to(dev),
+                            sides[1])
+                agree = compare(f"{layout} step {step} layer {r}", got, ref,
+                                valid)
+                h_cpu = ref[0]
+            a = logits(params_gpu, got[0], last).cpu()
+            b = logits(params_cpu, h_cpu, last)
+            if bool(agree[0, last]):
+                err = (a - b).abs().max().item()
+                ok = torch.allclose(a, b, **PARITY_TOL)
+                log(f"  {layout} step {step}: logits max_abs_err={err:.3e} "
+                    f"tol={PARITY_TOL} {'ok' if ok else 'FAIL'}")
+                assert ok and torch.isfinite(a).all(), (layout, step, err)
+            else:
+                log(f"  {layout} step {step}: last token's routing flipped "
+                    f"in the last layer; logits not compared")
+            for caches in sides:
+                caches["len"].fill_(n + step)
+
+    flips = []
+    ops.reset_launch_counts()
+    for layout in ("dense", "paged"):
+        t0 = time.perf_counter()
+        run(layout)
+        log(f"  {layout}: {time.perf_counter() - t0:.1f} s (cpu and gpu)")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"  launches {counts}; routing flips (label, flips, kept changed) "
+        f"{[f for f in flips if f[1] or f[2]]}, in all "
+        f"{sum(f[1] for f in flips)}")
+    steps = 1 + len(forced)
+    assert counts["flash_attention"] == 2 * cfg.n_layers, counts
+    assert counts["decode_attention"] == len(forced) * cfg.n_layers, counts
+    assert counts["paged_decode_attention"] == len(forced) * cfg.n_layers
+    assert len(flips) == 2 * steps * cfg.n_layers
+    del params_gpu
+    release(torch)
+
+
 # ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
@@ -825,7 +995,7 @@ def graph_parity(torch, dev):
     from repro_torch.serving.request import Request
     from repro_torch.serving.steps import make_encode_fn
 
-    replays, fp8_counts = {}, {}
+    replays, fp8_counts, moe_counts = {}, {}, {}
     f8 = dict(kv_dtype=torch.float8_e4m3fn)
     # (label, arch, max_len, engine options, prompt lengths, image)
     cases = [("llava dense", "llava-next-mistral-7b", MAX_LEN, {},
@@ -839,7 +1009,13 @@ def graph_parity(torch, dev):
               dict(paged=True, page_size=16, preemption=True, **f8),
               (40, 20, 100, 64, 30), False),
              ("mamba2", "mamba2-370m", SSM_MAX_LEN, {},
-              (64, 256, 1000, 1900, 500), False)]
+              (64, 256, 1000, 1900, 500), False),
+             # the first request decodes past the 4096 window
+             ("mixtral dense", "mixtral-8x7b", MOE_MAX_LEN, {},
+              (4200, 20, 100, 64, 30), False),
+             ("mixtral paged", "mixtral-8x7b", MOE_MAX_LEN,
+              dict(paged=True, page_size=16, preemption=True),
+              (4200, 20, 100, 64, 30), False)]
     for label, arch, max_len, opts, prompts, image in cases:
         with held_to_eager() as counted:
             base = get_config(arch)
@@ -880,6 +1056,8 @@ def graph_parity(torch, dev):
             torch.cuda.synchronize()
             if "kv_dtype" in opts:
                 fp8_counts[label] = ops.launch_counts()
+            if arch == "mixtral-8x7b":
+                moe_counts[label] = ops.launch_counts()
             assert all(len(r.output_tokens) == r.max_new_tokens
                        for r in reqs), label
             if eng.paged:
@@ -895,9 +1073,15 @@ def graph_parity(torch, dev):
     want = {"llava dense decode", "llava dense dense_prefill",
             "llava paged decode", "llava dense fp8 decode",
             "llava dense fp8 dense_prefill", "llava paged fp8 decode",
-            "mamba2 decode", "mamba2 dense_prefill"}
+            "mamba2 decode", "mamba2 dense_prefill", "mixtral dense decode",
+            "mixtral dense dense_prefill", "mixtral paged decode"}
     assert set(replays) == want, replays
-    log(f"  launches of the fp8 cases: {fp8_counts}")
+    log(f"  launches of the fp8 cases: {fp8_counts}; of the mixtral cases: "
+        f"{moe_counts}")
+    for label, wrapper in (("mixtral dense", "decode_attention"),
+                           ("mixtral paged", "paged_decode_attention")):
+        assert moe_counts[label]["flash_attention"] > 0, moe_counts
+        assert moe_counts[label][wrapper] > 0, moe_counts
     assert fp8_counts["llava dense fp8"]["decode_attention"] > 0
     assert fp8_counts["llava paged fp8"]["paged_decode_attention"] > 0
     return fp8_counts
@@ -939,11 +1123,14 @@ def ssm_requests(cfg):
 
 
 def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
-          kv_dtype=None, **kw):
+          kv_dtype=None, hits="store", run_kw=None, **kw):
     """Serve ``reqs`` on a fresh EPDCluster with the launch counters set
     to 0 just before and read just after; every kernel in ``path`` must
     have launched. ``kv_dtype``: the cluster's engines rebuilt to store
-    K/V in it, as ``launch/serve.py --kv-fp8`` does."""
+    K/V in it, as ``launch/serve.py --kv-fp8`` does. ``hits``: what a
+    paged run must have hit at least once, the MM store ("store", an
+    image shared by two requests) or the prefix cache ("prefix").
+    ``run_kw``: options of ``run_continuous``."""
     from repro_torch.core.cluster import EPDCluster
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import with_kv_dtype
@@ -968,7 +1155,7 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     for r in reqs:
         r.t_arrival = t0
     if continuous:
-        done = cluster.run_continuous(reqs)
+        done = cluster.run_continuous(reqs, **(run_kw or {}))
     else:
         for r in reqs:
             cluster.submit(r)
@@ -988,7 +1175,9 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
         for eng in [cluster.prefill_engine, *cluster.decode_engines]:
             eng.assert_no_page_leaks()
         assert cluster.decode_engine.pool.n_used == 0
-        assert cluster.store.stats.hits >= 1, cluster.store.stats
+        hit = (cluster.store.stats if hits == "store"
+               else cluster.prefill_engine.prefix_cache.stats)
+        assert hit.hits >= 1, (hits, hit)
     n_out = sum(len(r.output_tokens) for r in reqs)
     stats = dict(
         ttft_ms=[1e3 * r.ttft for r in reqs],
@@ -996,9 +1185,12 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
         tokens_per_s=n_out / wall, wall_s=wall, n_out=n_out,
         counts=counts, graphs=graphs, kv_bytes=kv_bytes,
         outputs=[list(r.output_tokens) for r in reqs])
+    pc = cluster.prefill_engine.prefix_cache
     log(f"  {mode}: {len(done)}/{len(reqs)} completed in {wall:.2f} s; "
         f"launches {counts}; CUDA graphs {graphs}; MM store "
-        f"{cluster.store.stats}; decode K/V {kv_bytes} bytes")
+        f"{cluster.store.stats}; prefix cache "
+        f"{pc.stats if pc is not None else None}; decode K/V {kv_bytes} "
+        f"bytes")
     for r in reqs:
         log(f"    req {r.request_id} ({len(r.prompt_tokens)} text + "
             f"{r.mm_tokens} image tokens) -> {r.output_tokens}")
@@ -1047,7 +1239,20 @@ def ssd_dynamic_smem(torch, mangled):
         m.group(1) == "out_kernel"]
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3c", "4", "5", "5f", "4b")
+def moe_requests(cfg):
+    """The four text requests of phases 4m and 5m (MOE_PROMPTS), 16 new
+    tokens each; B's first 2048 tokens are A's."""
+    from repro_torch.serving.request import Request
+    a = [(13 * j + 1) % cfg.vocab for j in range(MOE_PROMPTS[0])]
+    prompts = [a, a[:2048] + [(7 * j + 5) % cfg.vocab
+                              for j in range(MOE_PROMPTS[1] - 2048)]]
+    prompts += [[(11 * i + 3 * j + 2) % cfg.vocab for j in range(n)]
+                for i, n in enumerate(MOE_PROMPTS[2:])]
+    return [Request(prompt_tokens=p, max_new_tokens=16) for p in prompts]
+
+
+ALL_PHASES = ("1", "2", "3", "3b", "3m", "3c", "4", "5", "5f", "4m", "5m",
+              "4b")
 
 
 def main() -> int:
@@ -1100,21 +1305,35 @@ def main() -> int:
     kernels = {}
     if "2" in phases:
         log("[2] kernels vs plain versions at the serving shapes")
+        t0 = time.perf_counter()
         kernels = check_kernels(torch, dev)
         kernels["ssd_scan"] = check_ssd(torch, dev)
+        log(f"[2] {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         log("[3] model parity, llava-next-mistral-7b full width, 2 layers, "
             "f32, CPU plain vs GPU kernels")
+        t0 = time.perf_counter()
         model_parity(torch, dev)
+        log(f"[3] {time.perf_counter() - t0:.1f} s")
     if "3b" in phases:
         log("[3b] model parity, mamba2-370m full width, 2 layers, f32, "
             "CPU plain vs GPU ssd_scan")
+        t0 = time.perf_counter()
         ssm_parity(torch, dev)
+        log(f"[3b] {time.perf_counter() - t0:.1f} s")
+    if "3m" in phases:
+        log("[3m] model parity, mixtral-8x7b full width, 2 layers, f32, "
+            "capacity factor 1.25, CPU plain vs GPU kernels, layer by layer")
+        t0 = time.perf_counter()
+        moe_parity(torch, dev)
+        log(f"[3m] {time.perf_counter() - t0:.1f} s")
     graph_counts = None
     if "3c" in phases:
         log("[3c] CUDA graphs: replay vs eager, bitwise, full width, 2 "
             "layers, bf16")
+        t0 = time.perf_counter()
         graph_counts = graph_parity(torch, dev)
+        log(f"[3c] {time.perf_counter() - t0:.1f} s")
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
@@ -1165,6 +1384,40 @@ def main() -> int:
                 f"(bf16; not required)")
         del params
         release(torch)
+    if phases & {"4m", "5m"}:
+        full = get_config("mixtral-8x7b")
+        cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[4m] {cfg.name}: {count_params(params) / 1e9:.3f} B params in "
+            f"bf16, made in {time.perf_counter() - t0:.1f} s; reduced: "
+            f"n_layers {full.n_layers}->{cfg.n_layers}, bf16 weights "
+            f"{2 * full.param_count() / 1e9:.1f}->"
+            f"{2 * cfg.param_count() / 1e9:.1f} GB; max_len {MOE_MAX_LEN}, "
+            f"prompts {MOE_PROMPTS}: A's {MOE_PROMPTS[0]} tokens pass the "
+            f"{cfg.sliding_window}-token window in prefill and decode")
+        if "4m" in phases:
+            log("[4m] serve, dense: submit + run_until_done")
+            t0 = time.perf_counter()
+            serve_stats["mixtral dense"] = serve(
+                torch, dev, cfg, params, "mixtral dense", moe_requests(cfg),
+                MOE_MAX_LEN, False, attn[:2])
+            log(f"[4m] {time.perf_counter() - t0:.1f} s")
+        if "5m" in phases:
+            log("[5m] serve, paged (prefix cache, chunked prefill 512): "
+                "run_continuous, one live prefill, so that B's prefill finds "
+                "A's pages in the prefix cache")
+            t0 = time.perf_counter()
+            serve_stats["mixtral paged"] = serve(
+                torch, dev, cfg, params, "mixtral paged", moe_requests(cfg),
+                MOE_MAX_LEN, True, (attn[0], attn[2]), hits="prefix",
+                run_kw=dict(max_live_prefills=1), paged=True, page_size=16,
+                prefix_cache=True, chunked_prefill=True, prefill_chunk=512)
+            log(f"[5m] {time.perf_counter() - t0:.1f} s")
+        del params
+        release(torch)
     if "4b" in phases:
         cfg = get_config("mamba2-370m")
         t0 = time.perf_counter()
@@ -1190,7 +1443,9 @@ def main() -> int:
 
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
-        log(f"[6] {mode} on {smi}: TTFT ms {[round(x, 2) for x in st['ttft_ms']]} "
+        depth = (f" ({MOE_LAYERS} of 32 layers)" if mode.startswith("mixtral")
+                 else "")
+        log(f"[6] {mode}{depth} on {smi}: TTFT ms {[round(x, 2) for x in st['ttft_ms']]} "
             f"(mean {statistics.mean(st['ttft_ms']):.2f}); TPOT ms "
             f"{[round(x, 3) for x in st['tpot_ms']]} (mean "
             f"{statistics.mean(st['tpot_ms']):.3f}); "

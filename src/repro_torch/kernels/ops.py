@@ -78,6 +78,12 @@ def add_launches(counts: Dict[str, int]) -> None:
         _WRAPPERS[name].LAUNCHES += n
 
 
+def symbols() -> Dict[str, tuple]:
+    """Each wrapper's ``SYMBOLS``: tuples of parts of a mangled name, all
+    of which one of its device kernels' names holds."""
+    return {name: mod.SYMBOLS for name, mod in _WRAPPERS.items()}
+
+
 def device_kernels() -> Dict[str, int]:
     """Device kernels one launch of each wrapper issues."""
     return {name: mod.DEVICE_KERNELS for name, mod in _WRAPPERS.items()}

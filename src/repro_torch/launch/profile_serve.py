@@ -18,13 +18,20 @@ of the wall time (the device-busy share), the kernel launches (a
 replayed graph's kernel nodes among them), the kernels that take the
 most device time, the graphs' census (``EPDCluster.graph_census``:
 kernel nodes, those of each wrapper's kernels, captures and replays) and
-the host time of the graph key a decode replay builds.
+the host time of the graph key a decode replay builds. Last, it serves
+the requests once more with the graph steps run eagerly and traces the
+first submit and two decode steps there, where the profiler can
+attribute each kernel to the PyTorch op that launched it (a replay has
+no ops): device time per op (``bmm`` is the MoE experts' products,
+``sort``/``gather``/``scatter`` their dispatch).
 The Chrome traces go to ``--out`` (default ``chiprun_out/``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import re
 import statistics
 import time
 from pathlib import Path
@@ -40,8 +47,23 @@ def _device_us(e) -> float:
     return 0.0
 
 
+def wrapper_of_key(key: str):
+    """The kernel wrapper whose device kernel a profiler row names (a
+    demangled name), or None: ``ops.symbols`` with the length prefixes
+    and template markers of the mangled parts taken off."""
+    from repro_torch.kernels import ops
+    for name, alts in ops.symbols().items():
+        for parts in alts:
+            fn, *rest = (re.sub(r"^\d+", "", p).rstrip("I") for p in parts)
+            if (re.search(rf"(?<!\w){fn}<", key)
+                    and all(r in key for r in rest)):
+                return name
+    return None
+
+
 def report(label: str, prof, wall_ms: float, n_steps: int = 1) -> None:
-    """Print device-busy share and top kernels of one traced phase."""
+    """Print device-busy share, top kernels and the hand-written kernels'
+    device time of one traced phase."""
     rows = prof.key_averages()
     kernels = [e for e in rows
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -56,6 +78,44 @@ def report(label: str, prof, wall_ms: float, n_steps: int = 1) -> None:
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         print(f"  {_device_us(e) / 1e3 / n_steps:9.3f} ms/call "
               f"{e.count // n_steps:5d}x  {e.key[:90]}")
+    ours: dict = {}
+    for e in kernels:
+        name = wrapper_of_key(e.key)
+        if name is not None:
+            ms, n = ours.get(name, (0.0, 0))
+            ours[name] = (ms + _device_us(e) / 1e3, n + e.count)
+    for name, (ms, n) in ours.items():
+        print(f"  hand-written {name}: {ms / n_steps:.3f} ms/call in "
+              f"{n // n_steps} launches a call")
+
+
+def report_ops(label: str, prof, n_steps: int = 1, top: int = 16) -> None:
+    """Print the device time of the kernels each PyTorch op launched
+    itself (its children's excluded), per call, for the ops that launched
+    any, and the kernels no op launched (the hand-written ones)."""
+    rows = prof.key_averages()
+    ops = [e for e in rows if e.device_type != torch.autograd.DeviceType.CUDA
+           and _device_us(e) > 0]
+    total = sum(_device_us(e) for e in ops) / 1e3 / n_steps
+    print(f"{label} (eager), device time by the op that launched it: "
+          f"{total:.3f} ms per call")
+    for e in sorted(ops, key=_device_us, reverse=True)[:top]:
+        print(f"  {_device_us(e) / 1e3 / n_steps:9.3f} ms/call "
+              f"{e.count // n_steps:5d}x  {e.key[:90]}")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Within the block, graph steps run their function eagerly: no
+    capture, no replay."""
+    from repro_torch.serving.graphs import GraphStep
+    real = GraphStep.__call__
+    GraphStep.__call__ = lambda self, state, *inputs: self.fn(*state,
+                                                               *inputs)
+    try:
+        yield
+    finally:
+        GraphStep.__call__ = real
 
 
 def key_us(eng, n: int = 1000):
@@ -170,6 +230,24 @@ def main() -> None:
     us, n_state = key_us(eng)
     print(f"graph key of a decode replay: {us:.2f} us host time (median), "
           f"over {n_state} state tensors")
+    while eng.n_active:
+        eng.decode_step()
+    with eager_steps():
+        for i, r in enumerate(smoke_requests(cfg)):
+            if i == 0:
+                with profile(activities=acts) as prof_pe:
+                    cluster.submit(r)
+                    torch.cuda.synchronize()
+            else:
+                cluster.submit(r)
+        eng.decode_step()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof_de:
+            for _ in range(2):
+                eng.decode_step()
+            torch.cuda.synchronize()
+    report_ops("prefill (first submit)", prof_pe)
+    report_ops("decode steps", prof_de, 2)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     prof_p.export_chrome_trace(str(out / "trace_prefill.json"))

@@ -71,9 +71,11 @@ class AttnCache(NamedTuple):
 
 
 def make_attn_cache(cfg: ModelConfig, n_repeats: int, batch: int,
-                    max_len: int, dtype, device):
-    """``dtype`` is the K/V storage dtype (fp8 included); kv_pos is int32."""
-    s = max_len
+                    max_len: int, window: Optional[int], dtype, device):
+    """``window``: clamp the cache to it (a ring buffer), or None for
+    ``max_len`` slots. ``dtype`` is the K/V storage dtype (fp8 included);
+    kv_pos is int32."""
+    s = min(max_len, window) if window else max_len
     kshape = (n_repeats, batch, s, cfg.n_kv_heads, cfg.head_dim)
     return AttnCache(torch.zeros(kshape, dtype=dtype, device=device),
                      torch.zeros(kshape, dtype=dtype, device=device),

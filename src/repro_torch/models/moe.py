@@ -1,0 +1,123 @@
+"""Top-k MoE feed-forward with sort-based capacity dispatch (dropped-token,
+GShard-style capacity, without materialising the (T, E, C) one-hot).
+
+Same function as the single-device branch of ``repro/models/moe.py``.
+Dispatch is per batch row: each row's S * k selections are sorted by
+expert (stably, as ``jnp.argsort`` sorts), the first C of each expert
+keep a slot in its buffer, the rest are dropped. C depends only on S
+(``capacity``), so the step's shapes are fixed by its input's shape.
+
+Every op stays on the device and syncs nothing with the host (counts by
+``scatter_add_``, positions by ``arange`` on the device), so the block
+runs inside a captured CUDA graph (``serving/graphs.py``). The expert
+buffers are filled by a gather (each slot reads the selection that
+owns it), and the combine puts the slots back in token order (a scatter
+of a permutation) and adds each token's k contributions in a fixed
+order: no atomics, so a replay is bitwise equal to the eager step. The reference's
+expert-parallel ``shard_map`` branch is not ported (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+from math import ceil
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import rms_norm
+
+
+def capacity(cfg: ModelConfig, seq: int) -> int:
+    moe = cfg.moe
+    c = ceil(seq * moe.top_k / moe.n_experts * moe.capacity_factor)
+    return max(1, min(c, seq * moe.top_k))
+
+
+def route(p, h, cfg: ModelConfig):
+    """Router of ``moe_block`` on the normed input ``h`` (B, S, d):
+    (probs (B, S, E) f32, gates (B, S, k) f32 renormalised over the k,
+    expert indices (B, S, k) int64)."""
+    logits = h.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, eidx
+
+
+def dispatch(eidx, n_experts: int):
+    """Position-in-expert of each selection, per row. eidx: (B, S, k).
+
+    Returns (sort_idx (B, T): the stable sort of the T = S * k selections
+    by expert; sorted_e (B, T): their experts; pos (B, T): each one's rank
+    within its expert; starts (B, E): the sorted index of each expert's
+    first selection; counts (B, E): selections per expert)."""
+    B = eidx.shape[0]
+    fe = eidx.reshape(B, -1)                                   # (B, T)
+    sort_idx = torch.argsort(fe, dim=1, stable=True)
+    sorted_e = torch.gather(fe, 1, sort_idx)
+    counts = torch.zeros((B, n_experts), dtype=torch.int64,
+                         device=fe.device).scatter_add_(
+                             1, fe, torch.ones_like(fe))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = (torch.arange(fe.shape[1], device=fe.device)[None]
+           - torch.gather(starts, 1, sorted_e))
+    return sort_idx, sorted_e, pos, starts, counts
+
+
+def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x + moe_out, aux_load_balance_loss f32 scalar)."""
+    moe = cfg.moe
+    B, S, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    C = capacity(cfg, S)
+    T = S * k
+
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    probs, gates, eidx = route(p, h, cfg)
+
+    # ---- aux load-balance loss (Switch-style) ----
+    me = probs.mean(dim=(0, 1))                                # (E,)
+    top1 = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    top1.scatter_add_(0, eidx[..., 0].reshape(-1),
+                      torch.ones((B * S,), dtype=torch.float32,
+                                 device=x.device))
+    aux = E * torch.sum(me * (top1 / (B * S)))
+
+    # ---- sort-based position-in-expert ----
+    sort_idx, sorted_e, pos, starts, counts = dispatch(eidx, E)
+    keep = pos < C
+    tok_sorted = sort_idx // k                                 # its token
+
+    # ---- expert buffers (B, E, C, d): slot (e, c) holds the selection at
+    # sorted index starts[e] + c if the expert has that many, else zeros
+    # (the reference's scatter into zeros, as a gather) ----
+    c_idx = torch.arange(C, device=x.device)
+    src = starts[:, :, None] + c_idx                           # (B, E, C)
+    filled = c_idx < counts[:, :, None]
+    src = torch.clamp(src, max=T - 1).reshape(B, E * C)
+    tok = torch.gather(tok_sorted, 1, src)                     # (B, E*C)
+    ebuf = torch.gather(h, 1, tok[..., None].expand(-1, -1, d))
+    ebuf = torch.where(filled.reshape(B, E * C, 1), ebuf, 0.0)
+    ebuf = ebuf.reshape(B, E, C, d)
+
+    # ---- expert computation (gated MLP), one batched product an expert ----
+    up = torch.einsum("becd,edf->becf", ebuf, p["wi"])
+    gate = torch.einsum("becd,edf->becf", ebuf, p["wg"])
+    out = torch.einsum("becf,efd->becd", F.silu(gate) * up, p["wo"])
+
+    # ---- combine: each selection, in token order (t * k + j), reads its
+    # slot's output (the zero row E*C when it was dropped) weighted by its
+    # gate; each token then adds its k contributions in order ----
+    slot = torch.empty_like(sort_idx).scatter_(
+        1, sort_idx, torch.where(keep, sorted_e * C + pos, E * C))
+    obuf = torch.cat([out.reshape(B, E * C, d),
+                      torch.zeros((B, 1, d), dtype=out.dtype,
+                                  device=x.device)], dim=1)
+    got = torch.gather(obuf, 1, slot[..., None].expand(-1, -1, d))
+    w = torch.where(slot < E * C, gates.reshape(B, T), 0.0)
+    got = (got * w[..., None].to(got.dtype)).reshape(B, S, k, d)
+    y = got[:, :, 0]
+    for j in range(1, k):
+        y = y + got[:, :, j]
+    return x + y, aux

@@ -1,12 +1,12 @@
 """Decoder backbone: caches, input embedding, the layer loop, LM head.
 
 Same functions as ``repro/models/transformer.py`` for decoders of
-attention and Mamba2 (SSM) mixers with gated MLPs or no ffn. The
-reference's ``lax.scan`` over pattern repeats becomes a Python loop over
-``r`` that hands each layer its slice of the stacked parameters and
-cache views; the views are written in place. MoE ffns and
-encoder-decoder models raise ``NotImplementedError`` (still to port, see
-ROADMAP.md).
+attention (full or sliding-window) and Mamba2 (SSM) mixers with gated
+MLP, top-k MoE or no ffn. The reference's ``lax.scan`` over pattern
+repeats becomes a Python loop over ``r`` that hands each layer its slice
+of the stacked parameters and cache views; the views are written in
+place. Encoder-decoder models raise ``NotImplementedError`` (still to
+port, see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,21 +16,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-
-_TODO = "not ported yet (see ROADMAP.md, Queue 1)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model features this port does not run yet."""
     if cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder / cross-attention {_TODO}")
-    for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "swa", "ssm"):
-            raise NotImplementedError(f"{cfg.name}: {spec.mixer} mixer {_TODO}")
-        if spec.ffn not in ("mlp", "none"):
-            raise NotImplementedError(f"{cfg.name}: {spec.ffn} ffn {_TODO}")
+            f"{cfg.name}: encoder-decoder / cross-attention not ported yet "
+            f"(see ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -39,10 +34,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 dtype=torch.float32, kv_dtype=None, device="cpu",
-                layout: str = "dense", page_size: int = 16, n_pages: int = 0,
+                for_decode: bool = False, layout: str = "dense",
+                page_size: int = 16, n_pages: int = 0,
                 with_attn: bool = True) -> Dict[str, Any]:
     """Cache dict for serving, one "attn" and one "ssm" entry per pattern
     position (None where the mixer has no such state).
+
+    for_decode=True clamps dense sliding-window caches to the window (a
+    ring buffer); prefill-capable caches keep max_len so a whole prompt
+    fits. The paged layout is never clamped: the window is enforced by
+    masking.
 
     kv_dtype: storage dtype of the attention K/V only (e.g.
     torch.float8_e4m3fn), default ``dtype``; SSM state and conv tails
@@ -79,8 +80,10 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
             attn.append(L.make_paged_attn_cache(
                 cfg, cfg.n_repeats, n_pages, page_size, kv_dtype, device))
         else:
+            window = (cfg.sliding_window
+                      if spec.mixer == "swa" and for_decode else None)
             attn.append(L.make_attn_cache(cfg, cfg.n_repeats, batch, max_len,
-                                          kv_dtype, device))
+                                          window, kv_dtype, device))
     caches = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": None,
               "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged:
@@ -186,8 +189,9 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
     caches: cache dict from make_caches (serving) or None (no cache).
     prefix_len / pos_base: paged suffix prefill against a cached prefix
     (see layers.attention_block).
-    Returns (h, new_caches, aux_loss); the cache tensors are updated in
-    place and the returned dict shares them.
+    Returns (h, new_caches, aux_loss): aux_loss is the MoE layers' summed
+    load-balance loss (f32 scalar); the cache tensors are updated in place
+    and the returned dict shares them.
     """
     check_supported(cfg)
     cur_len = caches["len"] if caches is not None else None
@@ -195,6 +199,7 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
     attn_cls = L.PagedAttnCache if pages is not None else L.AttnCache
     decode = caches is not None and x.shape[1] == 1
     h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_repeats):
         for i, spec in enumerate(cfg.pattern):
             p = params["blocks"][i]
@@ -216,6 +221,10 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
             if spec.ffn == "mlp":
                 h = L.mlp_block({kk: t[r] for kk, t in p["mlp"].items()}, h,
                                 cfg)
+            elif spec.ffn == "moe":
+                h, a = MOE.moe_block({kk: t[r] for kk, t in p["moe"].items()},
+                                     h, cfg)
+                aux = aux + a
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
 
@@ -230,5 +239,4 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
         }
         if pages is not None:
             new_caches["pages"] = pages
-    return h, new_caches, torch.zeros((), dtype=torch.float32,
-                                      device=x.device)
+    return h, new_caches, aux

@@ -23,7 +23,10 @@ collection runs inside a capture, and the decode kernels' merge counters
 exist before the first capture. The
 decode pair also reads K/V stored in float8_e4m3fn (an fp8 cache or
 pool) under f32 and bf16 queries, at the same cases; its wrappers refuse
-any other mixed pairing, and flash refuses fp8.
+any other mixed pairing, and flash refuses fp8. The MoE feed-forward
+(``models/moe.py``, plain PyTorch) on the card equals its CPU run where
+routing agrees, captures into a graph, and a mixtral engine's steps
+replay bitwise with the window binding.
 """
 import dataclasses
 import gc
@@ -47,6 +50,7 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import frontend as FE  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.layers import to_kv  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.models.transformer import cache_tensors, clone_caches  # noqa: E402
@@ -894,3 +898,116 @@ def test_merge_counters_exist_before_the_first_capture(dev):
     with pytest.raises(ValueError, match="before a CUDA graph"):
         with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
             decode_attention(*args)
+
+
+# -- the MoE feed-forward (models/moe.py) on the card ----------------------
+
+def _moe_inputs(dev, dtype):
+    """Reduced mixtral's first MoE layer at capacity factor 1.25 in
+    ``dtype``, on the CPU and on the card, and two rows of 24 tokens whose
+    first 10 are one embedding (the dummies of a suffix window): they
+    fill an expert first, so the rows drop selections."""
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                         device=dev, dtype=dtype)
+    p = {k: v[0] for k, v in params["blocks"][0]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((2, 24, cfg.d_model), generator=gen, device=dev)
+    x[:, :10] = torch.randn((cfg.d_model,), generator=gen, device=dev)
+    x = x.to(dtype)
+    return cfg, ({k: v.cpu() for k, v in p.items()}, x.cpu()), (p, x)
+
+
+def _routing(cfg, p, x):
+    """(top-k experts, kept mask in token order, the smallest gap between
+    neighbouring probabilities of each token's top k + 1 experts)."""
+    h = MOE.rms_norm(x, p["norm"], cfg.norm_eps)
+    probs, _, eidx = MOE.route(p, h, cfg)
+    sort_idx, _, pos, _, _ = MOE.dispatch(eidx, cfg.moe.n_experts)
+    keep = torch.zeros_like(pos, dtype=torch.bool).scatter_(
+        1, sort_idx, pos < MOE.capacity(cfg, x.shape[1]))
+    top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+    margin = (top[..., :-1] - top[..., 1:]).min(-1).values
+    return eidx.cpu(), keep.reshape(eidx.shape).cpu(), margin.cpu()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_block_on_the_card_matches_cpu(dev, dtype):
+    """moe_block on the card against its CPU run in the same dtype: the
+    same experts except at a near-tie of the router's probabilities (1e-5
+    in f32; 1e-2 in bf16, whose normed input may round the other way), the
+    same dropped selections unless such a flip moved them, and the output
+    and aux within TOL at every token whose routing agrees."""
+    cfg, (pc, xc), (pg, xg) = _moe_inputs(dev, dtype)
+    out_c, aux_c = MOE.moe_block(pc, xc, cfg)
+    out_g, aux_g = MOE.moe_block(pg, xg, cfg)
+    e_c, k_c, margin = _routing(cfg, pc, xc)
+    e_g, k_g, _ = _routing(cfg, pg, xg)
+    assert not k_c.all()                           # the case drops
+    tie = 1e-5 if dtype == torch.float32 else 1e-2
+    e_flip = (e_c != e_g).any(-1)
+    k_flip = (k_c != k_g).any(-1)
+    assert bool((margin[e_flip] < tie).all()), margin[e_flip]
+    assert bool(e_flip.any()) or not bool(k_flip.any())
+    agree = ~(e_flip | k_flip)
+    torch.testing.assert_close(out_g.cpu()[agree], out_c[agree],
+                               **TOL[dtype])
+    assert aux_g.dtype == torch.float32
+    if not e_flip.any():
+        torch.testing.assert_close(aux_g.cpu(), aux_c, **TOL[torch.float32])
+
+
+def test_moe_block_replays_as_a_graph(dev):
+    """moe_block syncs nothing with the host: it captures into a CUDA
+    graph, and the replay on new input equals the eager block, bitwise."""
+    cfg, _, (p, x) = _moe_inputs(dev, torch.bfloat16)
+    step = GraphStep(lambda params, xx: MOE.moe_block(params, xx, cfg))
+    step((p,), x)                                   # eager, then capture
+    x2 = torch.flip(x, dims=[1]).contiguous()
+    out, aux = step((p,), x2)                       # replay
+    assert step.captures == 1 and step.replays == 1
+    want, want_aux = MOE.moe_block(p, x2, cfg)
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
+
+
+def _moe_engine(dev, kind, dtype):
+    """Reduced mixtral on the card with a 16-token window, so that
+    ``_requests`` decodes past it: dense, or paged on pages of 16 with
+    preemption."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              sliding_window=16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=dtype)
+    opts = (dict(paged=True, page_size=16, preemption=True)
+            if kind == "paged" else {})
+    return Engine(cfg, params, max_batch=2, max_len=64, device=dev, **opts)
+
+
+@pytest.mark.parametrize("kind,steps", [
+    ("dense", {"decode", "dense_prefill"}),
+    ("paged", {"decode"}),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
+                                              steps, dtype):
+    """A mixtral engine's captured steps replay to what the eager step
+    computes, bitwise, with the window binding; the graphs hold the
+    wrappers' kernels as a dense model's do (one decode or flash node a
+    layer, nothing else of ours)."""
+    eng = _moe_engine(dev, kind, dtype)
+    _serve(eng, _requests(eng, image=False),
+           preempt_at=3 if kind == "paged" else None)
+    assert set(replay_checks) == steps and replay_checks["decode"] >= 15
+    census = eng.graph_census()
+    wrapper = ("paged_decode_attention" if kind == "paged"
+               else "decode_attention")
+    n = eng.cfg.n_layers
+    ours = {k: v for k, v in census["decode"].items() if k.endswith(" nodes")}
+    assert ours == {f"{wrapper} nodes": n}
+    if kind == "dense":
+        ours = {k: v for k, v in census["prefill"].items()
+                if k.endswith(" nodes")}
+        assert ours == {"flash_attention nodes": n}
+    else:
+        assert eng.preempt_count == 1 and eng.resume_count == 1
+        eng.assert_no_page_leaks()

@@ -311,6 +311,9 @@ def test_suffix_prefill_logits(model, prefix_len):
 
 
 def test_unsupported_models_raise():
-    for name in ("jamba-v0.1-52b", "mixtral-8x7b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.make_caches(get_config(name).reduced(), 1, 16)
+    """Encoder-decoder models still raise; the MoE family is served
+    (``tests/test_torch_moe.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.make_caches(get_config("whisper-base").reduced(), 1, 16)
+    for name in ("jamba-v0.1-52b", "mixtral-8x7b", "llama4-scout-17b-a16e"):
+        T.make_caches(get_config(name).reduced(), 1, 16)

@@ -8,7 +8,8 @@
   reduced mamba2-370m against the JAX package, with the reference's
   parameters handed over through ``from_numpy_params``.
 * Inside the port: preempt/resume of a paged SSM engine is bit-identical
-  to the uninterrupted run; jamba (MoE) still raises.
+  to the uninterrupted run; jamba (MoE) serves with the reference's
+  tokens, and its chunked prefill still raises.
 * Two defects of the reference that the port reproduces (ROADMAP
   Queue 3): the conv tail after a padded prefill holds padding, and a
   paged cluster cannot serve an attention-free model.
@@ -434,7 +435,22 @@ def test_serve_launcher_runs_mamba2():
 
 
 def test_jamba_still_raises():
+    """jamba (attention + SSM + MoE) is served by the port's engine with
+    the reference's greedy tokens; chunked prefill still raises in both
+    packages, as SSM state cannot resume mid-sequence."""
+    cfg_j = jax_get_config("jamba-v0.1-52b").reduced()
     cfg = get_config("jamba-v0.1-52b").reduced()
-    params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe ffn.*ROADMAP"):
-        Engine(cfg, params, max_batch=1, max_len=32, device="cpu")
+    pj = jax_init_params(cfg_j, jax.random.PRNGKey(0))
+    pt = from_numpy_params(jax.tree.map(np.asarray, pj), cfg, device="cpu")
+    out = []
+    for cls, c, params, req, kw in (
+            (Engine, cfg, pt, Request, dict(device="cpu")),
+            (JaxEngine, cfg_j, pj, JaxRequest, {})):
+        eng = cls(c, params, max_batch=2, max_len=MAX_LEN, **kw)
+        r = req(prompt_tokens=list(PROMPTS[0]), max_new_tokens=4)
+        eng.run_request(r)
+        out.append(r.output_tokens)
+        with pytest.raises(ValueError, match="attention-only"):
+            cls(c, params, max_batch=1, max_len=MAX_LEN, paged=True,
+                page_size=8, chunked_prefill=True, prefill_chunk=8, **kw)
+    assert out[0] == out[1]

@@ -7,9 +7,11 @@ Phases (every failure raises and ends the run with a non-zero code):
   1. device: name and power limit, build the CUDA kernels (timed);
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the serving path's shapes (bf16 and f32, padding, ragged lengths,
-     a window; for ssd_scan an initial state, a padded tail, a single
-     chunk and two rows of which one is padded, and the device kernels a
-     call issues), with its device time a launch on cold inputs (``ms``) and a
+     a window, and flash at whisper-base's two non-causal forms at head
+     dim 64, each timed with its own bound; for ssd_scan an initial
+     state, a padded tail, a single chunk and two rows of which one is
+     padded, and the device kernels a call issues), with its device time
+     a launch on cold inputs (``ms``) and a
      single call's time (``call_ms``, host path included), its plain
      version's time, a PyTorch call that computes the same function
      where one exists (a yardstick only, timed both ways) and its bound;
@@ -38,11 +40,18 @@ Phases (every failure raises and ends the run with a non-zero code):
      the MoE routing (top-k experts, kept selections) agrees except at
      near-ties of the router's probabilities, counted and printed, and
      outputs and logits agree wherever routing does;
-  3c. CUDA graphs: at full width and 2 layers in bf16, every call of a
-     captured step (llava dense decode and dense prefill with an image
-     and without, llava paged decode, each also over fp8 K/V, mamba2
-     decode and 2048 prefill, mixtral dense decode and 6144 prefill and
-     paged decode, one request decoding past the window) is
+  3w. model parity: whisper-base at full width and depth in f32, a
+     40-token prompt padded to 448 with 1500 stub audio frames, then 8
+     greedy decode steps, on the CPU (plain versions) and on the GPU
+     (kernels): the encoder output, each layer's cross-KV, each layer's
+     output in the prefill and every step, the logits and the tokens;
+  3c. CUDA graphs: at full width and 2 layers in bf16 (whisper-base at
+     its full depth), every call of a captured step (llava dense decode
+     and dense prefill with an image and without, llava paged decode,
+     each also over fp8 K/V, mamba2 decode and 2048 prefill, mixtral
+     dense decode and 6144 prefill and paged decode, one request
+     decoding past the window, whisper dense decode and dense prefill
+     with the encoder inside, whisper paged decode) is
      also run eagerly on a copy of its caches and held bitwise against
      the engine's call, a capture's warm-up or a replay; 5 requests
      through 4 slots, so the steps cross page boundaries and a released
@@ -63,16 +72,27 @@ Phases (every failure raises and ends the run with a non-zero code):
   5m. the same requests on a paged cluster with prefix cache and chunked
      prefill of 512 through run_continuous (one live prefill, so that B
      hits A's pages in the prefix cache): windowed paged decode;
+  4w. serve whisper-base, dense: EPDCluster at full width and depth in
+     bf16, max_len 448 (its decoder context), 4
+     audio requests (two share one payload) of 4-64 prompt tokens, 32 new
+     tokens each, through submit + run_until_done: flash over 1500
+     encoder frames and as cross-attention (one query a slot inside the
+     replayed decode step), dense decode;
+  5w. the same requests on a paged cluster (page 16) through
+     run_continuous, as monolithic prefill jobs: paged decode; greedy
+     tokens equal 4w's;
   4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
      layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
      through submit + run_until_done, then run_continuous;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases.
-The kernel launch counters are set to 0 just before each serving run and
-read just after it (a CUDA-graph replay adds the launches its capture
-recorded); each run must have launched every kernel of its path and
-replayed its decode graph, and prints its captures and replays. The
-last lines are a JSON object per kernel, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+Every serving cluster models its transfer charges on the H100 cost
+profile (``costmodel.H100``). The kernel launch counters are set to 0
+just before each serving run and read just after it (a CUDA-graph
+replay adds the launches its capture recorded); each run must have
+launched every kernel of its path and replayed its decode graph, and
+prints its captures and replays. The last lines are a JSON object per
+kernel, the card's name and power limit, and {"ok": true, "device":
+{...}}.
 
 ``--phases`` runs a subset (``--phases 1,2``: build and kernel checks).
 """
@@ -80,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -122,6 +143,7 @@ MOE_MARGIN = 1e-5        # 3m: a near-tie of router probabilities may flip
 # phases 4m, 5m: A past the window, B A's first 2048 tokens and 96 of its
 # own (a prefix-cache hit on the paged cluster), C and D short
 MOE_PROMPTS = (4608, 2048 + 96, 64, 1024)
+WHISPER_MAX_LEN = 448    # whisper's decoder context, a multiple of 16
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -275,6 +297,26 @@ def log_timing(name, r):
         f"{r['shape']}")
 
 
+def check_close(torch, name, label, dtype, out, ref, empty=()):
+    """``out`` within TOL of ``ref``; rows ``empty`` (no valid key)
+    must be 0 in the kernel (the plain versions give the mean of V
+    there) and are left out of the comparison."""
+    zero = True
+    if empty:
+        zero = bool((out[list(empty)] == 0).all())
+        rows = [i for i in range(out.shape[0]) if i not in empty]
+        out, ref = out[rows], ref[rows]
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
+    log(f"  {name} [{label}] {dtype}: max_abs_err={err:.3e} "
+        f"tol={TOL[dtype]}"
+        + (f", rows {list(empty)} without keys 0: {zero}" if empty
+           else "") + f" {'ok' if ok and zero else 'FAIL'}")
+    assert ok and zero and torch.isfinite(out.float()).all(), (
+        name, label, err)
+    return err
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -301,25 +343,7 @@ def check_kernels(torch, dev):
         return (randn(shape, dtype) if kv is None
                 else to_kv(randn(shape, torch.float32), kv))
 
-    def compare(name, label, dtype, out, ref, empty=()):
-        """``out`` within TOL of ``ref``; rows ``empty`` (no valid key)
-        must be 0 in the kernel (the plain versions give the mean of V
-        there) and are left out of the comparison."""
-        zero = True
-        if empty:
-            zero = bool((out[list(empty)] == 0).all())
-            rows = [i for i in range(out.shape[0]) if i not in empty]
-            out, ref = out[rows], ref[rows]
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
-        log(f"  {name} [{label}] {dtype}: max_abs_err={err:.3e} "
-            f"tol={TOL[dtype]}"
-            + (f", rows {list(empty)} without keys 0: {zero}" if empty
-               else "") + f" {'ok' if ok and zero else 'FAIL'}")
-        assert ok and zero and torch.isfinite(out.float()).all(), (
-            name, label, err)
-        return err
-
+    compare = functools.partial(check_close, torch)
     # -- flash: engine prefill (pad to max_len), suffix chunk, window, cross
     def flash_case(dtype, s, S, n_valid, q_off=0, pfx=None, window=None,
                    causal=True, heads=(nq, nkv), dim=hd):
@@ -543,6 +567,66 @@ def check_kernels(torch, dev):
         log_timing(f"{name} fp8", r)
         results[name]["fp8"] = r
     return results
+
+
+def check_whisper_flash(torch, dev):
+    """flash in whisper-base's two non-causal forms, against its plain
+    version in bf16 and f32 and timed in bf16 (8 q / 8 kv heads, hd 64):
+    the encoder's self-attention over its 1500 frames (b 1, s = S =
+    1500), and the cross-attention of the decode step (b 4 slots, one
+    query each, S 1500 encoder keys). The yardstick is SDPA with the same
+    mask. Returns the two rows by name."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    nh, hd, t = 8, 64, 1500
+
+    def case(dtype, b, s):
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, t, nh, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, t, nh, hd), generator=gen, device=dev).to(dt)
+        # the encoder's positions, or each decode slot's next position
+        qp = (torch.arange(s, dtype=torch.int32, device=dev)[None]
+              + torch.tensor([[0], [16], [32], [64]][:b], dtype=torch.int32,
+                             device=dev)).contiguous()
+        kp = torch.arange(t, dtype=torch.int32, device=dev).repeat(b, 1)
+        return q, k, v, qp, kp
+
+    def kernel(*a):
+        return flash_attention(*a, causal=False)
+
+    def plain(*a):
+        return attention_ref(*a, causal=False)
+
+    rows = {}
+    for name, b, s in (("flash_whisper_encoder", 1, t),
+                       ("flash_whisper_cross_decode", 4, 1)):
+        errs = {}
+        for dtype in ("bfloat16", "float32"):
+            args = case(dtype, b, s)
+            errs[dtype] = check_close(torch, "flash_attention", name, dtype,
+                                      kernel(*args), plain(*args))
+
+        def make():
+            q, k, v, qp, kp = case("bfloat16", b, s)
+            mask = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            return (q, k, v, qp, kp), (qt, kt, vt, mask[:, None])
+        first = make()
+        q, k, v, qp, kp = first[0]
+        n_pairs = b * s * t
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
+            qp.numel() + kp.numel())
+        rows[name] = dict(
+            max_abs_err=errs["bfloat16"],
+            **timing(torch, first, make, kernel, plain, sdpa, nbytes,
+                     4 * hd * nh * n_pairs,
+                     shape=f"b{b} s{s} S{t} nq{nh} nkv{nh} hd{hd} bf16, "
+                           f"non-causal, {n_pairs} valid pairs"))
+        log_timing(name, rows[name])
+    return rows
 
 
 def check_ssd(torch, dev):
@@ -975,6 +1059,100 @@ def moe_parity(torch, dev):
     release(torch)
 
 
+def whisper_parity(torch, dev):
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers over 1500 frames), f32: the prefill of a 40-token prompt
+    padded to WHISPER_MAX_LEN, then 8 greedy decode steps, on the CPU
+    (plain versions) and on the GPU (kernels). Compared: the encoder
+    output, each layer's cross-KV, each layer's output (encoder and
+    decoder layers of the prefill, decoder layers of every step: the
+    outputs of their MLP blocks), the logits and the greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontend as FE
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import decode_forward, prefill_forward
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.models.transformer import make_caches, run_encoder
+
+    cfg = get_config("whisper-base")
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(7),
+                             device="cpu", dtype=torch.float32)
+    params_gpu = map_tree(lambda t: t.to(dev), params_cpu)
+    frames = FE.stub_embeddings(cfg, b"chip-smoke audio")[None]
+    n = 40
+    toks = torch.zeros((1, WHISPER_MAX_LEN), dtype=torch.int32)
+    toks[0, :n] = torch.tensor([(7 * i + 3) % cfg.vocab for i in range(n)])
+    mlp = L.mlp_block
+
+    def run(params, device):
+        layer_out = []
+
+        def recorded(p, x, cfg_):
+            y = mlp(p, x, cfg_)
+            layer_out.append(y.cpu())
+            return y
+
+        enc = run_encoder(params, cfg, frames.to(device))[0].cpu()
+        L.mlp_block = recorded
+        try:
+            caches = make_caches(cfg, 1, WHISPER_MAX_LEN, dtype=torch.float32,
+                                 device=device)
+            logits, caches = prefill_forward(
+                params, cfg, toks.to(device), caches,
+                lengths=torch.tensor([n], dtype=torch.int32, device=device),
+                enc_frames=frames.to(device))
+            cross = [t.cpu() for t in caches["cross"]]
+            out, tokens = [logits.cpu()], []
+            for _ in range(8):
+                tokens.append(int(torch.argmax(logits[0])))
+                logits, caches = decode_forward(
+                    params, cfg, torch.tensor(tokens[-1:], dtype=torch.int32,
+                                              device=device), caches)
+                out.append(logits.cpu())
+        finally:
+            L.mlp_block = mlp
+        return enc, cross, layer_out, out, tokens
+
+    t0 = time.perf_counter()
+    ref = run(params_cpu, "cpu")
+    t1 = time.perf_counter()
+    got = run(params_gpu, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def check(label, a, b):
+        err = (a - b).abs().max().item()
+        ok = torch.allclose(a, b, **PARITY_TOL) and bool(
+            torch.isfinite(a).all())
+        assert ok, (label, err)
+        return err
+
+    err = check("encoder output", got[0], ref[0])
+    log(f"  encoder output {tuple(got[0].shape)}: max_abs_err={err:.3e}")
+    errs = [check(f"cross {name} layer {r}", g[r], c[r])
+            for name, g, c in zip(("k", "v"), got[1], ref[1])
+            for r in range(cfg.n_layers)]
+    assert torch.equal(got[1][2], ref[1][2])
+    log(f"  cross-KV of {cfg.n_layers} layers: max_abs_err={max(errs):.3e}; "
+        f"enc_pos equal")
+    n_enc = cfg.encoder.n_layers
+    assert len(got[2]) == len(ref[2]) == n_enc + 9 * cfg.n_layers
+    errs = [check(f"layer output {i}", a, b)
+            for i, (a, b) in enumerate(zip(got[2], ref[2]))]
+    log(f"  layer outputs: {n_enc} encoder + {cfg.n_layers} decoder "
+        f"(prefill) + 8 x {cfg.n_layers} decoder (decode): max_abs_err="
+        f"{max(errs[:n_enc]):.3e}, {max(errs[n_enc:n_enc + cfg.n_layers]):.3e}"
+        f", {max(errs[n_enc + cfg.n_layers:]):.3e}")
+    for i, (a, b) in enumerate(zip(got[3], ref[3])):
+        log(f"  step {i}: logits max_abs_err={check(f'logits {i}', a, b):.3e} "
+            f"tol={PARITY_TOL} ok")
+    log(f"  greedy tokens GPU {got[4]}, CPU {ref[4]}: equal "
+        f"{got[4] == ref[4]}; cpu {t1 - t0:.1f} s, gpu {t2 - t1:.1f} s")
+    assert got[4] == ref[4]
+    del params_gpu
+    release(torch)
+
+
 # ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
@@ -995,42 +1173,50 @@ def graph_parity(torch, dev):
     from repro_torch.serving.request import Request
     from repro_torch.serving.steps import make_encode_fn
 
-    replays, fp8_counts, moe_counts = {}, {}, {}
+    replays, fp8_counts, moe_counts, censuses = {}, {}, {}, {}
     f8 = dict(kv_dtype=torch.float8_e4m3fn)
-    # (label, arch, max_len, engine options, prompt lengths, image)
+    paged = dict(paged=True, page_size=16, preemption=True)
+    # (label, arch, max_len, engine options, prompt lengths, payload of
+    # the first two requests: an image, audio frames or none)
     cases = [("llava dense", "llava-next-mistral-7b", MAX_LEN, {},
-              (40, 20, 100, 64, 30), True),
-             ("llava paged", "llava-next-mistral-7b", MAX_LEN,
-              dict(paged=True, page_size=16, preemption=True),
-              (40, 20, 100, 64, 30), False),
+              (40, 20, 100, 64, 30), "image"),
+             ("llava paged", "llava-next-mistral-7b", MAX_LEN, paged,
+              (40, 20, 100, 64, 30), None),
              ("llava dense fp8", "llava-next-mistral-7b", MAX_LEN, f8,
-              (40, 20, 100, 64, 30), True),
+              (40, 20, 100, 64, 30), "image"),
              ("llava paged fp8", "llava-next-mistral-7b", MAX_LEN,
-              dict(paged=True, page_size=16, preemption=True, **f8),
-              (40, 20, 100, 64, 30), False),
+              dict(paged, **f8), (40, 20, 100, 64, 30), None),
              ("mamba2", "mamba2-370m", SSM_MAX_LEN, {},
-              (64, 256, 1000, 1900, 500), False),
+              (64, 256, 1000, 1900, 500), None),
              # the first request decodes past the 4096 window
              ("mixtral dense", "mixtral-8x7b", MOE_MAX_LEN, {},
-              (4200, 20, 100, 64, 30), False),
-             ("mixtral paged", "mixtral-8x7b", MOE_MAX_LEN,
-              dict(paged=True, page_size=16, preemption=True),
-              (4200, 20, 100, 64, 30), False)]
-    for label, arch, max_len, opts, prompts, image in cases:
+              (4200, 20, 100, 64, 30), None),
+             ("mixtral paged", "mixtral-8x7b", MOE_MAX_LEN, paged,
+              (4200, 20, 100, 64, 30), None),
+             # at its full depth; every request carries audio frames
+             ("whisper dense", "whisper-base", WHISPER_MAX_LEN, {},
+              (40, 20, 100, 64, 30), "audio"),
+             ("whisper paged", "whisper-base", WHISPER_MAX_LEN, paged,
+              (40, 20, 100, 64, 30), "audio")]
+    for label, arch, max_len, opts, prompts, payload in cases:
         with held_to_eager() as counted:
-            base = get_config(arch)
-            cfg = dataclasses.replace(base, n_layers=2,
-                                      name=base.name + "-2layer")
+            cfg = base = get_config(arch)
+            if cfg.encoder is None:
+                cfg = dataclasses.replace(base, n_layers=2,
+                                          name=base.name + "-2layer")
             params = init_params(cfg,
                                  torch.Generator(device=dev).manual_seed(0),
                                  device=dev, dtype=torch.bfloat16)
             eng = Engine(cfg, params, max_batch=4, max_len=max_len,
                          device=dev, **opts)
             encode = make_encode_fn(cfg)
+            audio = payload == "audio"
+            image = payload == "image"
             reqs = [Request(prompt_tokens=[(11 * i + 5 * j + 2) % cfg.vocab
                                            for j in range(n)],
                             max_new_tokens=5 if i == 1 else 24,
-                            mm_payload=(b"chip-smoke graphs"
+                            mm_payload=(b"chip-smoke audio %d" % (i % 2)
+                                        if audio else b"chip-smoke graphs"
                                         if image and i < 2 else None),
                             mm_tokens=IMAGE_TOKENS if image and i < 2 else 0,
                             mm_pos=0)
@@ -1042,13 +1228,16 @@ def graph_parity(torch, dev):
                 while queue and eng.free_slots():
                     r = queue.pop(0)
                     kw = {}
-                    if r.mm_payload is not None:
+                    if audio:
+                        kw = dict(enc_frames=FE.stub_embeddings(
+                            cfg, r.mm_payload)[None])
+                    elif r.mm_payload is not None:
                         feats = FE.stub_embeddings(cfg, r.mm_payload,
                                                    r.mm_tokens)
                         kw = dict(mm_feats=encode(params, feats)[None],
                                   mm_key=FE.content_hash(r.mm_payload))
-                    first, payload = eng.prefill_request(r, **kw)
-                    eng.insert(r, payload, first)
+                    first, kv = eng.prefill_request(r, **kw)
+                    eng.insert(r, kv, first)
                 if eng.paged and step == 6:
                     eng.preempt_slot(eng.slots.index(reqs[0]))
                 eng.decode_step()
@@ -1063,7 +1252,7 @@ def graph_parity(torch, dev):
             if eng.paged:
                 assert eng.preempt_count == 1 and eng.resume_count == 1
                 eng.assert_no_page_leaks()
-            census = eng.graph_census()
+            census = censuses[label] = eng.graph_census()
             log(f"  {label}: {step} decode steps, every call bitwise equal "
                 f"to eager; graphs {census}")
             del eng, params
@@ -1074,8 +1263,27 @@ def graph_parity(torch, dev):
             "llava paged decode", "llava dense fp8 decode",
             "llava dense fp8 dense_prefill", "llava paged fp8 decode",
             "mamba2 decode", "mamba2 dense_prefill", "mixtral dense decode",
-            "mixtral dense dense_prefill", "mixtral paged decode"}
+            "mixtral dense dense_prefill", "mixtral paged decode",
+            "whisper dense decode", "whisper dense dense_prefill",
+            "whisper paged decode"}
     assert set(replays) == want, replays
+    # whisper's graphs: a decode step holds one self-attention decode node
+    # and one cross-attention flash node a decoder layer, the dense
+    # prefill one flash node an encoder layer and two a decoder layer,
+    # and neither any other kernel of ours
+    n = get_config("whisper-base").n_layers
+    n_enc = get_config("whisper-base").encoder.n_layers
+    for label, wrapper in (("whisper dense", "decode_attention"),
+                           ("whisper paged", "paged_decode_attention")):
+        ours = {k: v for k, v in censuses[label]["decode"].items()
+                if k.endswith(" nodes")}
+        assert ours == {f"{wrapper} nodes": n,
+                        "flash_attention nodes": n}, (label, ours)
+    ours = {k: v for k, v in censuses["whisper dense"]["prefill"].items()
+            if k.endswith(" nodes")}
+    assert ours == {"flash_attention nodes": 2 * n + n_enc}, ours
+    log(f"  whisper graph census: decode {n} flash + {n} decode nodes, "
+        f"dense prefill {2 * n + n_enc} flash nodes, as required")
     log(f"  launches of the fp8 cases: {fp8_counts}; of the mixtral cases: "
         f"{moe_counts}")
     for label, wrapper in (("mixtral dense", "decode_attention"),
@@ -1130,13 +1338,15 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     K/V in it, as ``launch/serve.py --kv-fp8`` does. ``hits``: what a
     paged run must have hit at least once, the MM store ("store", an
     image shared by two requests) or the prefix cache ("prefix").
-    ``run_kw``: options of ``run_continuous``."""
+    ``run_kw``: options of ``run_continuous``. The cluster models its
+    transfer charges on the card's cost profile (``costmodel.H100``)."""
     from repro_torch.core.cluster import EPDCluster
+    from repro_torch.core.costmodel import H100
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import with_kv_dtype
 
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=max_len,
-                         device=dev, **kw)
+                         device=dev, hw=H100, **kw)
     if kv_dtype is not None:
         with_kv_dtype(cluster, kv_dtype)
     engines = [cluster.prefill_engine, *cluster.decode_engines]
@@ -1184,6 +1394,7 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
         tpot_ms=[1e3 * r.tpot for r in reqs],
         tokens_per_s=n_out / wall, wall_s=wall, n_out=n_out,
         counts=counts, graphs=graphs, kv_bytes=kv_bytes,
+        store=cluster.store.stats,
         outputs=[list(r.output_tokens) for r in reqs])
     pc = cluster.prefill_engine.prefix_cache
     log(f"  {mode}: {len(done)}/{len(reqs)} completed in {wall:.2f} s; "
@@ -1251,8 +1462,8 @@ def moe_requests(cfg):
     return [Request(prompt_tokens=p, max_new_tokens=16) for p in prompts]
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3m", "3c", "4", "5", "5f", "4m", "5m",
-              "4b")
+ALL_PHASES = ("1", "2", "3", "3b", "3m", "3w", "3c", "4", "5", "5f", "4m",
+              "5m", "4w", "5w", "4b")
 
 
 def main() -> int:
@@ -1276,7 +1487,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import smoke_requests
+    from repro_torch.launch.serve import audio_requests, smoke_requests
     from repro_torch.models.params import count_params, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1302,12 +1513,13 @@ def main() -> int:
                 f"shared {smem} bytes static"
                 + (f" + {dyn} dynamic" if dyn is not None else ""))
 
-    kernels = {}
+    kernels, whisper_rows = {}, {}
     if "2" in phases:
         log("[2] kernels vs plain versions at the serving shapes")
         t0 = time.perf_counter()
         kernels = check_kernels(torch, dev)
         kernels["ssd_scan"] = check_ssd(torch, dev)
+        whisper_rows = check_whisper_flash(torch, dev)
         log(f"[2] {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         log("[3] model parity, llava-next-mistral-7b full width, 2 layers, "
@@ -1327,6 +1539,12 @@ def main() -> int:
         t0 = time.perf_counter()
         moe_parity(torch, dev)
         log(f"[3m] {time.perf_counter() - t0:.1f} s")
+    if "3w" in phases:
+        log("[3w] model parity, whisper-base full width and depth, f32, "
+            "CPU plain vs GPU kernels, layer by layer")
+        t0 = time.perf_counter()
+        whisper_parity(torch, dev)
+        log(f"[3w] {time.perf_counter() - t0:.1f} s")
     graph_counts = None
     if "3c" in phases:
         log("[3c] CUDA graphs: replay vs eager, bitwise, full width, 2 "
@@ -1418,6 +1636,41 @@ def main() -> int:
             log(f"[5m] {time.perf_counter() - t0:.1f} s")
         del params
         release(torch)
+    if phases & {"4w", "5w"}:
+        cfg = get_config("whisper-base")
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[4w] {cfg.name}: {count_params(params) / 1e6:.1f} M params in "
+            f"bf16 ({cfg.encoder.n_layers} encoder layers over "
+            f"{cfg.encoder.n_ctx} frames, {cfg.n_layers} decoder layers), "
+            f"made in {time.perf_counter() - t0:.1f} s; max_len "
+            f"{WHISPER_MAX_LEN}")
+        if "4w" in phases:
+            log("[4w] serve, dense: submit + run_until_done")
+            t0 = time.perf_counter()
+            st = serve_stats["whisper dense"] = serve(
+                torch, dev, cfg, params, "whisper dense", audio_requests(cfg),
+                WHISPER_MAX_LEN, False, attn[:2])
+            assert st["store"].hits >= 1, st["store"]
+            log(f"[4w] {time.perf_counter() - t0:.1f} s")
+        if "5w" in phases:
+            log("[5w] serve, paged (page 16): run_continuous, monolithic "
+                "prefill jobs")
+            t0 = time.perf_counter()
+            serve_stats["whisper paged"] = serve(
+                torch, dev, cfg, params, "whisper paged", audio_requests(cfg),
+                WHISPER_MAX_LEN, True, (attn[0], attn[2]), paged=True,
+                page_size=16)
+            log(f"[5w] {time.perf_counter() - t0:.1f} s")
+        if "whisper dense" in serve_stats and "whisper paged" in serve_stats:
+            same = (serve_stats["whisper dense"]["outputs"]
+                    == serve_stats["whisper paged"]["outputs"])
+            log(f"[5w] dense and paged greedy outputs identical: {same}")
+            assert same
+        del params
+        release(torch)
     if "4b" in phases:
         cfg = get_config("mamba2-370m")
         t0 = time.perf_counter()
@@ -1488,6 +1741,20 @@ def main() -> int:
                      if graph_counts else None)
                 where = "3c"
             rows[-1]["fp8"].update(launches=n, launches_in=where)
+    # flash in whisper's two non-causal forms: its launches in 4w + 5w,
+    # all of which are whisper's (encoder, cross and decoder self-attention)
+    runs = [serve_stats[m] for m in ("whisper dense", "whisper paged")
+            if m in serve_stats]
+    for wname in ("flash_whisper_encoder", "flash_whisper_cross_decode"):
+        r = whisper_rows.get(wname, {})
+        rows.append(dict(
+            name=wname, route="cuda", **KERNEL_INFO["flash_attention"],
+            launches=sum(st["counts"]["flash_attention"] for st in runs),
+            launches_in="4w+5w", max_abs_err=r.get("max_abs_err"),
+            ms=r.get("ms"), plain_ms=r.get("plain_ms"),
+            bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
+            library_ms=r.get("library_ms"), call_ms=r.get("call_ms"),
+            library_call_ms=r.get("library_call_ms")))
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

@@ -6,7 +6,10 @@ Store, modality-aware router, E->P prefetch bookkeeping, P->D grouped KV
 transfer planning — so the disaggregation logic runs end-to-end with
 real tensors: full-size models on the GPU, reduced configs on the CPU in
 the tests. The transfer and retry charges are modeled by ``CostModel``
-(still a TPU v5e profile, ``costmodel.V5E``).
+on the ``hw`` profile: ``costmodel.V5E`` by default, the reference's, so
+that the CPU tests hold the port's modelled charges to the reference's;
+``costmodel.H100`` where the cluster serves on the card
+(``chip_smoke.py``, ``launch/serve.py``).
 
 Stage mapping:
 * Encode instance  — runs the (stubbed) frontend + owns the MM Store put.

@@ -6,8 +6,9 @@ times, using the same three-term decomposition as the dry-run roofline
 bytes / (chips * HBM bw), collective = bytes / link bw. A stage's service
 time is max(compute, memory) + collective + fixed launch overhead.
 
-Hardware constants are the TPU v5e target (the paper's Ascend Atlas 800I
-A2 is comparable per-chip; DESIGN.md records the swap). Efficiencies are
+Hardware constants: ``V5E`` is the reference's TPU v5e target (the
+paper's Ascend Atlas 800I A2 is comparable per-chip; DESIGN.md records
+the swap), ``H100`` the card the port serves on. Efficiencies are
 de-rates from peak, the usual 0.4-0.6 MFU band for prefill-like work.
 """
 from __future__ import annotations
@@ -48,6 +49,11 @@ class Hardware:
 V5E = Hardware()
 # cross-node disaggregation profile: KV moves over RDMA/DCN instead of ICI
 RDMA = Hardware(link_bw=12.5e9, handshake=13e-3)
+# one NVIDIA H100 SXM: dense bf16 tensor-core peak, HBM3, NVLink 4 (per
+# direction) between cards, PCIe 5.0 x16 to the host; every other field
+# (de-rates, overheads, the store path) is V5E's
+H100 = Hardware(peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9,
+                host_bw=64e9)
 
 
 # ViT encoder proxy for the Encode stage (paper: 0.6-6B ViT params).

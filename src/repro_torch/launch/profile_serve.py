@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--layers N]
 
 Builds llava-next-mistral-7b (or ``--arch``, e.g. ``mamba2-370m
---max-len 2048``) in bf16 (random weights, seed 0) and serves the
-requests of ``launch/serve.py:smoke_requests`` once on a dense
-``EPDCluster`` to pay the first-call costs and capture the CUDA graphs
-of its decode step and dense prefills (with another image, so that the
-second pass encodes its image as a new request does). Then, on the same
+--max-len 2048``, or ``whisper-base``, whose ``--max-len`` defaults to
+its 448-token decoder context) in bf16 (random weights, seed 0) and
+serves the requests of ``launch/serve.py:smoke_requests`` (an
+encoder-decoder: ``audio_requests``) once on a dense ``EPDCluster`` (on
+the ``H100`` cost profile) to pay the first-call costs and capture the
+CUDA graphs of its decode step and dense prefills (with another image or
+audio payload, so that the second pass encodes its payload as a new
+request does). Then, on the same
 cluster, it times each ``submit`` (Encode + Prefill + insert of one
 request) and ``--steps`` decode steps with the host clock after a
 ``torch.cuda.synchronize()``, and traces the first submit (an image
@@ -143,7 +146,8 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.cluster import EPDCluster
-    from repro_torch.launch.serve import smoke_requests
+    from repro_torch.core.costmodel import H100
+    from repro_torch.launch.serve import audio_requests, smoke_requests
     from repro_torch.models.params import init_params
     from repro_torch.runtime import resolve_device
 
@@ -151,7 +155,9 @@ def main() -> None:
     ap.add_argument("--arch", default="llava-next-mistral-7b")
     ap.add_argument("--layers", type=int, default=0,
                     help="decoder depth (0: the model's)")
-    ap.add_argument("--max-len", type=int, default=3072)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="3072, or 448 (whisper's decoder context) for an "
+                         "encoder-decoder")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -160,15 +166,18 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.max_len is None:
+        args.max_len = 448 if cfg.encoder is not None else 3072
+    requests = audio_requests if cfg.encoder is not None else smoke_requests
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev, dtype=torch.bfloat16)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     cluster = EPDCluster(cfg, params, max_batch=4, max_len=args.max_len,
-                         device=dev)
-    for r in smoke_requests(cfg):
+                         device=dev, hw=H100)
+    for r in requests(cfg):
         if r.mm_payload is not None:
-            r.mm_payload = b"profile_serve: the first pass's image"
+            r.mm_payload = b"profile_serve: the first pass's payload"
         cluster.submit(r)
     cluster.run_until_done()
     captured = cluster.graph_census()
@@ -181,7 +190,7 @@ def main() -> None:
 
     submit_ms = []
     prof_p = None
-    for i, r in enumerate(smoke_requests(cfg)):
+    for i, r in enumerate(requests(cfg)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
@@ -233,7 +242,7 @@ def main() -> None:
     while eng.n_active:
         eng.decode_step()
     with eager_steps():
-        for i, r in enumerate(smoke_requests(cfg)):
+        for i, r in enumerate(requests(cfg)):
             if i == 0:
                 with profile(activities=acts) as prof_pe:
                     cluster.submit(r)

@@ -70,6 +70,18 @@ class AttnCache(NamedTuple):
     kv_pos: torch.Tensor
 
 
+class CrossCache(NamedTuple):
+    """Stacked cross-attention K/V of an encoder-decoder, slot-indexed.
+
+    k, v:     (repeats, batch, n_ctx, n_kv, head_dim)
+    enc_pos:  (repeats, batch, n_ctx) int32, -1 = empty slot.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    enc_pos: torch.Tensor
+
+
 def make_attn_cache(cfg: ModelConfig, n_repeats: int, batch: int,
                     max_len: int, window: Optional[int], dtype, device):
     """``window``: clamp the cache to it (a ring buffer), or None for
@@ -105,6 +117,26 @@ def make_paged_attn_cache(cfg: ModelConfig, n_repeats: int, n_pages: int,
 
 def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def compute_cross_kv(p, enc_out, enc_pos, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder output (once per request):
+    (k, v (b, T, nkv, hd), enc_pos (b, T))."""
+    k = _split_heads(enc_out @ p["xwk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(enc_out @ p["xwv"], cfg.n_kv_heads, cfg.head_dim)
+    return k, v, enc_pos
+
+
+def cross_attention_block(p, x, positions, enc_kv, cfg: ModelConfig):
+    """Cross-attention over precomputed encoder K/V; residual included.
+    Non-causal, so flash takes every query, the single decode token too."""
+    k, v, enc_pos = enc_kv
+    h = rms_norm(x, p["xnorm"], cfg.norm_eps)
+    q = _split_heads(h @ p["xwq"], cfg.n_heads, cfg.head_dim)
+    out = K.attention(q, k.to(q.dtype), v.to(q.dtype), positions, enc_pos,
+                      causal=False)
+    out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
+    return x + out @ p["xwo"]
 
 
 def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,

@@ -15,8 +15,8 @@ from repro_torch.models import transformer as T
 
 def prefill_forward(params, cfg: ModelConfig, tokens, caches,
                     *, lengths: Optional[torch.Tensor] = None,
-                    mm_embeds=None, prefix_len=None, pos_base=None,
-                    mm_feats=None, mm_start=None):
+                    mm_embeds=None, enc_frames=None, prefix_len=None,
+                    pos_base=None, mm_feats=None, mm_start=None):
     """Populate caches from a (padded) prompt batch.
 
     lengths: (B,) true prompt lengths (including mm tokens). Padded
@@ -28,6 +28,8 @@ def prefill_forward(params, cfg: ModelConfig, tokens, caches,
     mm_feats / mm_start: features already projected to d_model, (B, n_mm,
     d), scattered over the embedding stream at absolute positions
     [mm_start, mm_start + n_mm).
+    enc_frames: (B, T, feature_dim) raw frames of an encoder-decoder,
+    run through the encoder; its cross-KV goes into ``caches["cross"]``.
     Returns (last_token_logits (B, vocab) f32, new_caches).
     """
     x, positions = T.embed_inputs(params, cfg, tokens, mm_embeds)
@@ -47,8 +49,12 @@ def prefill_forward(params, cfg: ModelConfig, tokens, caches,
     if mm_feats is not None:
         # padded/invalid positions are -1, hence rel < 0 -> untouched
         x = T.scatter_mm_features(x, positions, mm_feats, mm_start)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = T.run_encoder(params, cfg, enc_frames)
     h, new_caches, _ = T.run_decoder(params, cfg, x, positions,
-                                     caches=caches, prefix_len=prefix_len,
+                                     caches=caches, enc_out=enc_out,
+                                     prefix_len=prefix_len,
                                      pos_base=pos_base)
     if prefix_len is not None:
         last = torch.clamp(lengths - 1 - int(pos_base), min=0)

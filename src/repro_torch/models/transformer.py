@@ -2,11 +2,12 @@
 
 Same functions as ``repro/models/transformer.py`` for decoders of
 attention (full or sliding-window) and Mamba2 (SSM) mixers with gated
-MLP, top-k MoE or no ffn. The reference's ``lax.scan`` over pattern
-repeats becomes a Python loop over ``r`` that hands each layer its slice
+MLP, top-k MoE or no ffn, and for the encoder-decoder (whisper-class:
+``run_encoder`` and cross-attention over a slot-indexed cross-KV cache).
+The reference's ``lax.scan`` over pattern repeats (and over encoder
+layers) becomes a Python loop over ``r`` that hands each layer its slice
 of the stacked parameters and cache views; the views are written in
-place. Encoder-decoder models raise ``NotImplementedError`` (still to
-port, see ROADMAP.md).
+place.
 """
 from __future__ import annotations
 
@@ -18,14 +19,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model features this port does not run yet."""
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder / cross-attention not ported yet "
-            f"(see ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +45,15 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     layout="paged": attention KV lives in a shared pool of ``n_pages``
     physical pages of ``page_size`` tokens (page 0 is the trash page) and
     the dict grows a "pages" block table (batch, max_len // page_size).
-    SSM state stays slot-indexed in either layout. with_attn=False leaves
-    the attention entries None (side state only, for a caller that swaps
-    in its own pool).
+    SSM state and the cross-KV stay slot-indexed in either layout.
+    with_attn=False leaves the attention entries None (side state only,
+    for a caller that swaps in its own pool).
+
+    An encoder-decoder's "cross" is a CrossCache: K/V (n_repeats,
+    batch, n_ctx, nkv, hd) in ``dtype`` (not ``kv_dtype``: an fp8 pool
+    leaves the cross-KV wide) and enc_pos (n_repeats, batch, n_ctx)
+    int32, -1 in a slot that no request has filled; None otherwise.
     """
-    check_supported(cfg)
     kv_dtype = kv_dtype or dtype
     paged = layout == "paged"
     if paged:
@@ -84,7 +81,15 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                       if spec.mixer == "swa" and for_decode else None)
             attn.append(L.make_attn_cache(cfg, cfg.n_repeats, batch, max_len,
                                           window, kv_dtype, device))
-    caches = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": None,
+    cross = None
+    if cfg.encoder is not None:
+        kshape = (cfg.n_repeats, batch, cfg.encoder.n_ctx, cfg.n_kv_heads,
+                  cfg.head_dim)
+        cross = L.CrossCache(
+            torch.zeros(kshape, dtype=dtype, device=device),
+            torch.zeros(kshape, dtype=dtype, device=device),
+            torch.full(kshape[:3], -1, dtype=torch.int32, device=device))
+    caches = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": cross,
               "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if paged:
         caches["pages"] = torch.zeros((batch, max_len // page_size),
@@ -94,11 +99,11 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def reset_caches(caches) -> None:
     """Write back, in place, what ``make_caches`` puts in a fresh cache:
-    zeros, and -1 (empty slot) in every ``kv_pos``."""
-    for e in (*caches["attn"], *caches["ssm"]):
+    zeros, and -1 (empty slot) in every ``kv_pos`` and in enc_pos."""
+    for e in (*caches["attn"], *caches["ssm"], caches.get("cross")):
         if e is not None:
             for name, t in zip(e._fields, e):
-                t.fill_(-1 if name == "kv_pos" else 0)
+                t.fill_(-1 if name in ("kv_pos", "enc_pos") else 0)
     caches["len"].zero_()
     if caches.get("pages") is not None:
         caches["pages"].zero_()
@@ -112,6 +117,8 @@ def clone_caches(caches) -> Dict[str, Any]:
     out = dict(caches, attn=tuple(map(entry, caches["attn"])),
                ssm=tuple(map(entry, caches["ssm"])),
                len=caches["len"].clone())
+    if caches.get("cross") is not None:
+        out["cross"] = entry(caches["cross"])
     if caches.get("pages") is not None:
         out["pages"] = caches["pages"].clone()
     return out
@@ -120,7 +127,7 @@ def clone_caches(caches) -> Dict[str, Any]:
 def cache_tensors(caches) -> list:
     """Every tensor of a cache dict (the reference's ``jax.tree.leaves``)."""
     out = []
-    for e in (*caches["attn"], *caches["ssm"]):
+    for e in (*caches["attn"], *caches["ssm"], caches.get("cross")):
         if e is not None:
             out.extend(e)
     out.append(caches["len"])
@@ -178,22 +185,47 @@ def lm_logits(params, cfg: ModelConfig, h):
 
 
 # ---------------------------------------------------------------------------
+# Encoder (whisper-style)
+# ---------------------------------------------------------------------------
+
+def run_encoder(params, cfg: ModelConfig, frames):
+    """frames: (B, T, feature_dim) stub embeddings -> ((B, T, d_model),
+    positions (B, T) int32). Non-causal self-attention in every layer."""
+    enc = params["encoder"]
+    x = frames.to(params["projector"].dtype) @ params["projector"]
+    x = x + enc["pos_embed"][None, :x.shape[1]].to(x.dtype)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=x.device).repeat(b, 1)
+    for r in range(cfg.encoder.n_layers):
+        x, _ = L.attention_block(
+            {k: w[r] for k, w in enc["layers"]["attn"].items()}, x,
+            positions, cfg, causal=False)
+        x = L.mlp_block({k: w[r] for k, w in enc["layers"]["mlp"].items()},
+                        x, cfg)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps), positions
+
+
+# ---------------------------------------------------------------------------
 # Decoder stack
 # ---------------------------------------------------------------------------
 
 def run_decoder(params, cfg: ModelConfig, x, positions, *,
                 caches: Optional[Dict[str, Any]] = None,
-                prefix_len=None, pos_base=None):
+                enc_out=None, prefix_len=None, pos_base=None):
     """Run all decoder layers.
 
     caches: cache dict from make_caches (serving) or None (no cache).
+    enc_out: (enc_hidden, enc_pos) of an encoder-decoder's prefill; each
+    layer's cross-KV is computed from it and written into
+    ``caches["cross"]`` (when given) at its repeat. A decode step reads
+    the cross-KV from there instead.
     prefix_len / pos_base: paged suffix prefill against a cached prefix
     (see layers.attention_block).
     Returns (h, new_caches, aux_loss): aux_loss is the MoE layers' summed
     load-balance loss (f32 scalar); the cache tensors are updated in place
     and the returned dict shares them.
     """
-    check_supported(cfg)
     cur_len = caches["len"] if caches is not None else None
     pages = caches.get("pages") if caches is not None else None
     attn_cls = L.PagedAttnCache if pages is not None else L.AttnCache
@@ -206,12 +238,26 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
             if spec.mixer in ("attn", "swa"):
                 window = cfg.sliding_window if spec.mixer == "swa" else None
                 c = caches["attn"][i] if caches is not None else None
+                pa = {kk: t[r] for kk, t in p["attn"].items()}
                 h, _ = L.attention_block(
-                    {kk: t[r] for kk, t in p["attn"].items()}, h, positions,
-                    cfg, window=window,
+                    pa, h, positions, cfg, window=window,
                     cache=tuple(t[r] for t in c) if c is not None else None,
                     cur_len=cur_len, pages=pages,
                     prefix_len=prefix_len, pos_base=pos_base)
+                if cfg.encoder is not None:
+                    cross = caches["cross"] if caches is not None else None
+                    if decode:
+                        ckv = tuple(t[r] for t in cross)
+                    else:
+                        ckv = L.compute_cross_kv(pa, *enc_out, cfg)
+                        if cross is not None:
+                            # T frames into n_ctx slots: the rest stay
+                            # empty, as the reference pads them on insert
+                            t = ckv[0].shape[1]
+                            for dst, src, fill in zip(cross, ckv, (0, 0, -1)):
+                                dst[r, :, :t].copy_(src)
+                                dst[r, :, t:].fill_(fill)
+                    h = L.cross_attention_block(pa, h, positions, ckv, cfg)
             elif spec.mixer == "ssm":
                 c = caches["ssm"][i] if caches is not None else None
                 h, _ = SSM.ssm_block(

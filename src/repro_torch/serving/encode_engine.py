@@ -49,13 +49,9 @@ class EncodeEngine:
         self.name = name
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        # VLM-class: trunk+projector forward. Whisper-class (raw frames
-        # for an encoder under prefill's cross-attention) is not ported.
-        if cfg.encoder is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder Encode stage not ported yet "
-                f"(see ROADMAP.md)")
-        self._encode = make_encode_fn(cfg)
+        # VLM-class: trunk+projector forward. Whisper-class keeps raw
+        # frames (the encoder runs under prefill's cross-attention).
+        self._encode = make_encode_fn(cfg) if cfg.encoder is None else None
         M = self.metrics
         self._m_requests = M.counter("encode_requests_total", engine=name)
         self._m_tokens = M.counter("encode_tokens_total", engine=name)
@@ -69,6 +65,8 @@ class EncodeEngine:
         Prefill-side store-miss recompute arm, so recomputes are
         bit-identical to the features they replace."""
         patches = FE.stub_embeddings(self.cfg, payload, n_tokens or None)
+        if self._encode is None:
+            return patches.numpy()              # raw frames (whisper)
         return self._encode(self.params, patches).cpu().numpy()
 
     def encode_request(self, req: Request) -> str:

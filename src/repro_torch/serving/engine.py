@@ -652,7 +652,8 @@ class Engine:
         return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
 
     def _dev_feats(self, feats) -> torch.Tensor:
-        """Projected features (numpy or tensor) -> f32 on this device."""
+        """Projected features or raw frames (numpy or tensor) -> f32 on
+        this device."""
         return torch.as_tensor(feats, dtype=torch.float32,
                                device=self.device)
 
@@ -744,14 +745,15 @@ class Engine:
                 self.pool.unref(pages[:n_shared])
 
         # host copies of the slot's own side state (its SSM state and conv
-        # tail, its length): the lock-step decode keeps writing the live
-        # batch tensors while the request is parked
-        def take(t):
-            return t[:, slot:slot + 1].to("cpu", copy=True)
+        # tail, its cross-KV, its length): the lock-step decode keeps
+        # writing the live batch tensors, and a resumed or new request
+        # takes the slot's cross-KV, while the request is parked
+        def take(e):
+            return None if e is None else type(e)(*(
+                t[:, slot:slot + 1].to("cpu", copy=True) for t in e))
 
-        side = {"ssm": tuple(None if e is None else type(e)(*map(take, e))
-                             for e in self.caches["ssm"]),
-                "cross": self.caches["cross"],
+        side = {"ssm": tuple(map(take, self.caches["ssm"])),
+                "cross": take(self.caches["cross"]),
                 "len": self.caches["len"][slot:slot + 1].cpu().clone()}
         pr = PreemptedRequest(req=req, handle=handle,
                               n_shared_pages=n_shared, n_pages=len(pages),
@@ -972,6 +974,8 @@ class Engine:
                          enc_frames=None, mm_feats=None, mm_key=None):
         cfg = self.cfg
         n_mm = 0
+        if enc_frames is not None:
+            enc_frames = self._dev_feats(enc_frames)
         if mm_feats is not None:
             mm_feats = self._dev_feats(mm_feats)
             n_mm = mm_feats.shape[1]

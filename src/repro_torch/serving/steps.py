@@ -60,7 +60,8 @@ def make_prefill_fn(cfg: ModelConfig, prefix: bool = False):
     under "attn" (written in place by the page scatter; the reference
     donates it), a fresh batch-1 side state for "ssm"/"cross"/"len", and
     the request's staging block-table row under "pages"; it runs
-    eagerly.
+    eagerly. ``enc_frames`` (an encoder-decoder's raw frames) run through
+    the encoder inside either step, whose cross-KV lands in "cross".
 
     prefix=True is the SUFFIX variant over that paged dict: ``tokens``
     holds only the uncached tail of the prompt (from the page-aligned
@@ -79,11 +80,12 @@ def make_prefill_fn(cfg: ModelConfig, prefix: bool = False):
 
         return prefill_suffix_fn
 
-    def dense_prefill(params, caches, tokens, lengths, mm_embeds, mm_feats,
-                      mm_start):
+    def dense_prefill(params, caches, tokens, lengths, mm_embeds, enc_frames,
+                      mm_feats, mm_start):
         reset_caches(caches)
         logits, new = prefill_forward(params, cfg, tokens, caches,
                                       lengths=lengths, mm_embeds=mm_embeds,
+                                      enc_frames=enc_frames,
                                       mm_feats=mm_feats, mm_start=mm_start)
         return logits, _len_in_place(caches, new)
 
@@ -91,18 +93,18 @@ def make_prefill_fn(cfg: ModelConfig, prefix: bool = False):
 
     def prefill_fn(params, tokens, lengths, caches, mm_embeds=None,
                    enc_frames=None, mm_feats=None, mm_start=None):
-        if enc_frames is not None:
-            raise NotImplementedError(
-                "encoder-decoder prefill not ported yet (see ROADMAP.md)")
         if caches.get("pages") is not None:
             return prefill_forward(params, cfg, tokens, caches,
                                    lengths=lengths, mm_embeds=mm_embeds,
+                                   enc_frames=enc_frames,
                                    mm_feats=mm_feats, mm_start=mm_start)
         if mm_start is not None:       # a device value, as jit traces it
             mm_start = torch.as_tensor(mm_start, dtype=torch.int32,
                                        device=tokens.device)
+        # an encoder-decoder's frames are an input of the graph: the
+        # encoder runs inside the captured prefill
         logits, new = graph((params, caches), tokens, lengths, mm_embeds,
-                            mm_feats, mm_start)
+                            enc_frames, mm_feats, mm_start)
         return logits.clone(), clone_caches(new)
 
     prefill_fn.graph = graph
@@ -147,12 +149,16 @@ def make_paged_insert_fn(cfg: ModelConfig):
     The attention KV is not touched — its pages are already in the pool
     (same-engine hand-off) or were copied by ``make_page_copy_fn``; this
     writes the slot's block-table row, length and slot-indexed side state
-    (SSM state and conv tail) in place.
+    (SSM state and conv tail, cross-KV) in place, so a replayed decode
+    graph reads the new request's encoder K/V at the same addresses.
     """
 
     def insert_fn(side, dst_caches, table_row, slot: int):
         for dst, src in _pairs(dst_caches["ssm"], side["ssm"]):
             dst[:, slot] = src[:, 0].to(dst.device, dst.dtype)
+        if dst_caches["cross"] is not None:
+            for dst, src in zip(dst_caches["cross"], side["cross"]):
+                dst[:, slot] = src[:, 0].to(dst.device, dst.dtype)
         lens, pages = dst_caches["len"], dst_caches["pages"]
         lens[slot] = side["len"][0].to(lens.device)
         pages[slot] = table_row.to(device=pages.device, dtype=pages.dtype)
@@ -222,8 +228,9 @@ def make_insert_fn(cfg: ModelConfig):
     """Copy one request's prefilled cache (batch 1) into batch slot
     ``slot`` of the dense decode cache, in place — the P->D hand-off on
     the Decode instance. Every tensor is copied (attention KV, SSM state
-    and conv tail, length), so the decode cache never aliases the
-    prefill cache."""
+    and conv tail, cross-KV, length), so the decode cache never aliases
+    the prefill cache and a replayed decode graph reads the new request's
+    state at the same addresses."""
 
     def ins(dst, src, slot):
         if src.dim() >= 3 and src.shape[2] != dst.shape[2]:
@@ -238,6 +245,9 @@ def make_insert_fn(cfg: ModelConfig):
     def insert_fn(src_caches, dst_caches, slot: int):
         for key in ("attn", "ssm"):
             for dst, src in _pairs(dst_caches[key], src_caches[key]):
+                ins(dst, src, slot)
+        if dst_caches["cross"] is not None:
+            for dst, src in zip(dst_caches["cross"], src_caches["cross"]):
                 ins(dst, src, slot)
         dst_caches["len"][slot] = src_caches["len"][0].to(
             dst_caches["len"].device)

@@ -26,7 +26,10 @@ pool) under f32 and bf16 queries, at the same cases; its wrappers refuse
 any other mixed pairing, and flash refuses fp8. The MoE feed-forward
 (``models/moe.py``, plain PyTorch) on the card equals its CPU run where
 routing agrees, captures into a graph, and a mixtral engine's steps
-replay bitwise with the window binding.
+replay bitwise with the window binding. Flash at whisper-base's two
+non-causal forms (the encoder's 1500 frames, one decode query a slot
+against 1500 cross-attention keys) equals its plain version, and a
+whisper engine's steps replay bitwise over the cross cache.
 """
 import dataclasses
 import gc
@@ -1008,6 +1011,98 @@ def test_moe_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
         ours = {k: v for k, v in census["prefill"].items()
                 if k.endswith(" nodes")}
         assert ours == {"flash_attention nodes": n}
+    else:
+        assert eng.preempt_count == 1 and eng.resume_count == 1
+        eng.assert_no_page_leaks()
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper-base): flash in its non-causal forms
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [
+    # b, s, S: the encoder's self-attention over 1500 frames; one decode
+    # token a slot against 1500 cross-attention keys (slots 2, 3: a
+    # request's keys end early, and an empty slot with no key at all)
+    (1, 1500, 1500), (4, 1, 1500)], ids=["encoder", "cross-decode"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_at_whisper_shapes(dev, shape, dtype):
+    b, s, S = shape
+    nq = nkv = 8
+    hd = 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = _randn(gen, (b, s, nq, hd), dtype, dev)
+    k = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    v = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    qp = (torch.arange(s, dtype=torch.int32, device=dev)
+          + torch.arange(b, dtype=torch.int32, device=dev)[:, None] * 7
+          ).contiguous()
+    kp = torch.arange(S, dtype=torch.int32, device=dev).repeat(b, 1)
+    if b == 4:
+        kp[2, 1000:] = -1
+        kp[3] = -1
+    ops.reset_launch_counts()
+    out = flash_attention(q, k, v, qp, kp, causal=False)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        out, attention_ref(q, k, v, qp, kp, causal=False), **TOL[dtype])
+    if b == 4:
+        assert torch.all(out[3] == 0)          # a slot without keys
+
+
+def _whisper_engine(dev, kind, dtype):
+    cfg = get_config("whisper-base").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=dtype)
+    opts = (dict(paged=True, page_size=16, preemption=True)
+            if kind == "paged" else {})
+    return Engine(cfg, params, max_batch=2, max_len=64, device=dev, **opts)
+
+
+@pytest.mark.parametrize("kind,steps", [
+    ("dense", {"decode", "dense_prefill"}),
+    ("paged", {"decode"}),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_whisper_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
+                                                  steps, dtype):
+    """A whisper engine's captured steps replay to what the eager step
+    computes, bitwise: the decode step reads each slot's cross-KV, which
+    inserts (and, on the paged engine, a swap-in) write in place, and the
+    dense prefill runs the encoder inside its graph. The decode graph
+    holds one self-attention decode node and one cross-attention flash
+    node a layer; the dense prefill one flash node a decoder layer for
+    each attention and one an encoder layer."""
+    eng = _whisper_engine(dev, kind, dtype)
+    reqs = [Request(prompt_tokens=[(7 * i + 3 * j + 1) % eng.cfg.vocab
+                                   for j in range(n)], max_new_tokens=new,
+                    mm_payload=b"audio-%d" % i, mm_tokens=0)
+            for i, (n, new) in enumerate([(9, 20), (5, 4), (12, 8)])]
+    queue = list(reqs)
+    step = 0
+    while queue or any(s is not None for s in eng.slots) or eng.preempted:
+        while queue and eng.free_slots():
+            r = queue.pop(0)
+            frames = FE.stub_embeddings(eng.cfg, r.mm_payload)[None]
+            first, payload = eng.prefill_request(r, None, frames)
+            eng.insert(r, payload, first)
+        if kind == "paged" and step == 3:
+            eng.preempt_slot(eng.slots.index(reqs[0]))
+        eng.decode_step()
+        step += 1
+        assert step < 200
+    assert [len(r.output_tokens) for r in reqs] == [20, 4, 8]
+    assert set(replay_checks) == steps and replay_checks["decode"] >= 15
+    census = eng.graph_census()
+    wrapper = ("paged_decode_attention" if kind == "paged"
+               else "decode_attention")
+    n, n_enc = eng.cfg.n_layers, eng.cfg.encoder.n_layers
+    ours = {k: v for k, v in census["decode"].items() if k.endswith(" nodes")}
+    assert ours == {f"{wrapper} nodes": n, "flash_attention nodes": n}
+    if kind == "dense":
+        ours = {k: v for k, v in census["prefill"].items()
+                if k.endswith(" nodes")}
+        assert ours == {"flash_attention nodes": 2 * n + n_enc}
     else:
         assert eng.preempt_count == 1 and eng.resume_count == 1
         eng.assert_no_page_leaks()

@@ -311,9 +311,26 @@ def test_suffix_prefill_logits(model, prefix_len):
 
 
 def test_unsupported_models_raise():
-    """Encoder-decoder models still raise; the MoE family is served
-    (``tests/test_torch_moe.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.make_caches(get_config("whisper-base").reduced(), 1, 16)
-    for name in ("jamba-v0.1-52b", "mixtral-8x7b", "llama4-scout-17b-a16e"):
-        T.make_caches(get_config(name).reduced(), 1, 16)
+    """No model family is refused any more: whisper's ``make_caches``
+    builds the reference's cross cache, dense and paged (shapes and
+    dtypes; K/V in ``dtype`` under an fp8 ``kv_dtype``, enc_pos -1), and
+    the MoE configs build theirs. What whisper still cannot do raises as in the
+    reference: a prefix cache or chunked prefill (``ValueError``,
+    ``tests/test_torch_whisper.py``)."""
+    paged = dict(layout="paged", page_size=8, n_pages=4)
+    for name, kw in [("whisper-base", {}), ("whisper-base", paged),
+                     ("jamba-v0.1-52b", {}), ("mixtral-8x7b", {}),
+                     ("llama4-scout-17b-a16e", {})]:
+        cj = JT.make_caches(jax_get_config(name).reduced(), 2, 16,
+                            dtype=jnp.bfloat16, kv_dtype=jnp.float8_e4m3fn,
+                            **kw)
+        ct = T.make_caches(get_config(name).reduced(), 2, 16,
+                           dtype=torch.bfloat16, kv_dtype=torch.float8_e4m3fn,
+                           **kw)
+        if cj["cross"] is None:
+            assert ct["cross"] is None, name
+            continue
+        for a, b in zip(ct["cross"], cj["cross"]):
+            assert tuple(a.shape) == tuple(b.shape), name
+            assert str(a.dtype).split(".")[-1] == str(b.dtype), name
+        assert bool((ct["cross"].enc_pos == -1).all())

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py            # all phases, as a user would run them
 
@@ -20,7 +21,12 @@ Phases (every failure raises and ends the run with a non-zero code):
      pair also on K/V stored in float8_e4m3fn (an fp8 cache or pool, read
      as it is) under bf16 and f32 queries, a row without keys giving 0,
      timed with a bound of one byte a K/V element and, as its yardstick,
-     the cache widened to bf16 plus SDPA;
+     the cache widened to bf16 plus SDPA; flash's gradient kernel
+     (flash_attention_bwd) against the autograd gradient of the plain
+     version at training shapes (smollm's 9/3 heads of 64 at b 4, s = S
+     = 2048 causal; mistral's 32/8 of 128 at 2048; whisper's non-causal
+     1500 x 1500; a window of 256; padded rows), bf16 and f32, two calls
+     bitwise equal, timed with the backward of SDPA as its yardstick;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged,
@@ -84,7 +90,19 @@ Phases (every failure raises and ends the run with a non-zero code):
   4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
      layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
      through submit + run_until_done, then run_continuous;
-  6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases.
+  7. training parity: smollm-135m at full width and 2 layers in f32, one
+     train step (batch 2 x 512) on the CPU (plain versions) and on the GPU
+     (flash and its gradient kernel): the loss, every gradient leaf (max
+     error beside max |g|) and the updated params; remat=True equals
+     remat=False on the card bitwise;
+  7t. training smollm-135m at full width and depth (30 layers) in bf16,
+     batch 4 x 2048, loss_chunk 512, remat, 20 steps of
+     synthetic_batches: the loss curve falls; ms a step, tokens/s, peak
+     memory; flash forward and backward launches (30 backward a step);
+     then a checkpoint saved, restored and one more step, bitwise equal
+     to the step without the round trip;
+  6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases,
+     and phase 7t's step time, tokens/s and peak memory.
 Every serving cluster models its transfer charges on the H100 cost
 profile (``costmodel.H100``). The kernel launch counters are set to 0
 just before each serving run and read just after it (a CUDA-graph
@@ -94,7 +112,8 @@ prints its captures and replays. The last lines are a JSON object per
 kernel, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 
-``--phases`` runs a subset (``--phases 1,2``: build and kernel checks).
+``--phases`` runs a subset (``--phases 1,2``: build and kernel checks;
+``--phases 1,7,7t``: training). Serving launches no gradient kernel.
 """
 from __future__ import annotations
 
@@ -103,6 +122,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -114,6 +134,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12       # H100 SXM HBM3 bytes/s
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),   # 8-bit mantissa out
        "float32": dict(atol=1e-4, rtol=1e-4)}    # summation order only
@@ -131,6 +152,11 @@ KERNEL_INFO = {
     "ssd_scan": dict(
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:78"),
+    # no TPU kernel: the reference trains through attention_ref, whose
+    # gradient JAX derives; this is the card's counterpart of that gradient
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/ref.py:43"),
 }
 MAX_LEN = 3072
 IMAGE_TOKENS = 2880
@@ -144,6 +170,11 @@ MOE_MARGIN = 1e-5        # 3m: a near-tie of router probabilities may flip
 # own (a prefix-cache hit on the paged cluster), C and D short
 MOE_PROMPTS = (4608, 2048 + 96, 64, 1024)
 WHISPER_MAX_LEN = 448    # whisper's decoder context, a multiple of 16
+# phases 7, 7t: smollm-135m training
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # 7t: 8192 tokens a step
+TRAIN_CHUNK = 512                    # 7t: loss_chunk of the lm head
+TRAIN_STEPS = 20
+PARITY_TRAIN = (2, 512)              # 7: batch, seq of the CPU-vs-GPU step
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -261,21 +292,22 @@ def sdpa(q, k, v, mask):
 
 
 def timing(torch, first, make, kernel, plain, library, nbytes, flops,
-           shape, plain_n=25):
+           shape, plain_n=25, peak=PEAK_BF16):
     """Times of one kernel at one shape, and its bound. ``make()`` draws a
     fresh input set: the kernel's arguments and the library call's (or
     None); ``first`` is one already drawn. ``ms`` and ``library_ms`` are
     device times on cold inputs (``device_ms`` over ``n_sets(nbytes)``
     sets); ``call_ms``, ``library_call_ms`` and ``plain_ms`` time single
-    calls on the first set (``time_ms``)."""
+    calls on the first set (``time_ms``). ``peak``: the FLOP/s of the
+    bound (bf16 tensor cores by default)."""
     sets = [first] + [make() for _ in range(n_sets(nbytes) - 1)]
     kargs = [s[0] for s in sets]
     r = dict(ms=device_ms(torch, kernel, kargs),
              call_ms=time_ms(torch, lambda: kernel(*kargs[0])),
              plain_ms=time_ms(torch, lambda: plain(*kargs[0]), n=plain_n),
              library_ms=None, library_call_ms=None,
-             bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS),
-             bound_by="operations" if flops / PEAK_BF16 > nbytes / HBM_BPS
+             bound_ms=1e3 * max(flops / peak, nbytes / HBM_BPS),
+             bound_by="operations" if flops / peak > nbytes / HBM_BPS
              else "bytes", n_sets=len(sets), shape=shape)
     if library is not None:
         largs = [s[1] for s in sets]
@@ -626,6 +658,149 @@ def check_whisper_flash(torch, dev):
                      shape=f"b{b} s{s} S{t} nq{nh} nkv{nh} hd{hd} bf16, "
                            f"non-causal, {n_pairs} valid pairs"))
         log_timing(name, rows[name])
+    return rows
+
+
+# the backward rows of phase 2: name -> (b, s = S, nq, nkv, hd, window,
+# causal, valid positions a row); the first is phase 7t's training shape
+BWD_CASES = {
+    "smollm causal": (TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, None, True, 2048),
+    "mistral causal": (1, 2048, 32, 8, 128, None, True, 2048),
+    "whisper encoder, non-causal": (1, 1500, 8, 8, 64, None, False, 1500),
+    "mistral window 256": (1, 1024, 32, 8, 128, 256, True, 1024),
+    "smollm padded rows 1900 of 2048": (2, 2048, 9, 3, 64, None, True, 1900),
+}
+
+
+def check_flash_bwd(torch, dev):
+    """flash_attention_bwd against the autograd gradient of the plain
+    version on the card, at the training shapes of BWD_CASES, in bf16 and
+    f32: dq, dk and dv within TOL (reference magnitude printed), padded
+    query rows 0, two calls bitwise equal. Each case is timed in bf16
+    (the smollm case in f32 too) with a bound of 2.5 times the forward's
+    two products (the scores recomputed, dP, dV, dK, dQ) over the peak of
+    its dtype, and as its yardstick the backward of SDPA on the same
+    inputs (``autograd.grad`` of its output, the graph kept). Returns the
+    rows by case."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def inputs(case, dtype):
+        b, s, nq, nkv, hd, win, causal, n_valid = case
+        dt = getattr(torch, dtype)
+        q, k, v, dout = (
+            torch.randn(shape, generator=gen, device=dev).to(dt)
+            for shape in ((b, s, nq, hd), (b, s, nkv, hd), (b, s, nkv, hd),
+                          (b, s, nq, hd)))
+        i = torch.arange(s, dtype=torch.int32, device=dev)
+        pos = torch.where(i < n_valid, i, torch.full_like(i, -1)).repeat(
+            b, 1).contiguous()
+        out = flash_attention(q, k, v, pos, pos, window=win, causal=causal)
+        return q, k, v, out, dout, pos, pos
+
+    def library_set(args, case):
+        """SDPA's forward on the same inputs, its graph kept for repeated
+        backwards: flash's function, with is_causal where the mask is the
+        plain causal one and a boolean mask elsewhere."""
+        q, k, v, _, dout, qp, kp = args
+        _, s, _, _, _, win, causal, n_valid = case
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        kw = {}
+        if win is not None or n_valid < s:
+            valid = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+            if causal:
+                valid &= kp[:, None, :] <= qp[:, :, None]
+                if win is not None:
+                    valid &= kp[:, None, :] > qp[:, :, None] - win
+            kw["attn_mask"] = valid[:, None]
+        elif causal:
+            kw["is_causal"] = True
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                 **kw)
+        return out, (qt, kt, vt), dout.transpose(1, 2).contiguous()
+
+    def library(out, leaves, dout):
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    rows = {}
+    for name, case in BWD_CASES.items():
+        b, s, nq, nkv, hd, win, causal, n_valid = case
+        kw = dict(window=win, causal=causal)
+
+        def kernel(q, k, v, out, dout, qp, kp):
+            return flash_attention_bwd(q, k, v, out, dout, qp, kp, **kw)
+
+        def plain(q, k, v, out, dout, qp, kp):
+            return attention_bwd_ref(q, k, v, qp, kp, dout, **kw)
+
+        errs = {}
+        for dtype in ("bfloat16", "float32"):
+            args = inputs(case, dtype)
+            got = kernel(*args)
+            again = kernel(*args)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            want = plain(*args)
+            zero = bool((got[0][:, n_valid:] == 0).all())
+            parts = []
+            for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                ok = torch.allclose(g.float(), w.float(), **TOL[dtype])
+                parts.append(f"{g_name} {err:.3e} (max |ref| "
+                             f"{w.float().abs().max().item():.3e})"
+                             f"{'' if ok else ' FAIL'}")
+                assert ok and torch.isfinite(g.float()).all(), (
+                    name, dtype, g_name, err)
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+            log(f"  flash_attention_bwd [{name}] {dtype}: max_abs_err "
+                f"{'; '.join(parts)} tol={TOL[dtype]}; padded rows' dq 0: "
+                f"{zero}; two calls bitwise equal: {same}")
+            assert same and zero, (name, dtype, same, zero)
+            del args, got, again, want
+            release(torch)
+
+        timed = ("bfloat16", "float32") if name == "smollm causal" else (
+            "bfloat16",)
+        for dtype in timed:
+            def make():
+                args = inputs(case, dtype)
+                return args, library_set(args, case)
+            first = make()
+            q, k, v, _, _, qp, kp = first[0]
+            valid = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+            if causal:
+                valid &= kp[:, None, :] <= qp[:, :, None]
+                if win is not None:
+                    valid &= kp[:, None, :] > qp[:, :, None] - win
+            n_pairs = int(valid.sum().item())
+            del valid
+            el = q.element_size()
+            nbytes = el * 4 * (q.numel() + k.numel()) + 4 * (
+                qp.numel() + kp.numel())
+            flops = 2.5 * 4 * hd * nq * n_pairs
+            if dtype == "bfloat16" and name == "smollm causal":
+                n_dev = device_kernels(torch, lambda: kernel(*first[0]))
+                log(f"  flash_attention_bwd: {n_dev} device kernels a call")
+                assert n_dev == 3, n_dev
+            r = timing(torch, first, make, kernel, plain, library, nbytes,
+                       flops, plain_n=5,
+                       peak=PEAK_BF16 if dtype == "bfloat16" else PEAK_F32,
+                       shape=f"{name}: b{b} s{s} S{s} nq{nq} nkv{nkv} hd{hd} "
+                             f"{'bf16' if dtype == 'bfloat16' else 'f32'}, "
+                             f"{n_pairs} valid pairs, {flops / 1e9:.2f} "
+                             f"GFLOP")
+            r["max_abs_err"] = errs[dtype]
+            log_timing(f"flash_attention_bwd {name} {dtype}", r)
+            rows[name if dtype == "bfloat16" else f"{name} f32"] = r
+            del first
+            release(torch)
     return rows
 
 
@@ -1255,6 +1430,12 @@ def graph_parity(torch, dev):
             census = censuses[label] = eng.graph_census()
             log(f"  {label}: {step} decode steps, every call bitwise equal "
                 f"to eager; graphs {census}")
+            # serving never takes the autograd path: no gradient kernel
+            # launched, none in a graph
+            assert ops.launch_counts()["flash_attention_bwd"] == 0, label
+            assert not any("flash_attention_bwd" in k
+                           for c in census.values() if isinstance(c, dict)
+                           for k in c), census
             del eng, params
             release(torch)
         replays.update({f"{label} {k}": n for k, n in counted.items()})
@@ -1377,6 +1558,7 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     assert len(done) == len(reqs) and not cluster.report.lost, \
         f"{mode}: {len(done)}/{len(reqs)} completed"
     assert all(counts[k] > 0 for k in path), (mode, counts)
+    assert counts["flash_attention_bwd"] == 0, (mode, counts)
     assert graphs["decode"]["replays"] > 0, f"{mode}: no decode replay"
     for r in reqs:
         assert len(r.output_tokens) == r.max_new_tokens, r.output_tokens
@@ -1462,8 +1644,172 @@ def moe_requests(cfg):
     return [Request(prompt_tokens=p, max_new_tokens=16) for p in prompts]
 
 
+# ---------------------------------------------------------------------------
+# phases 7, 7t: training smollm-135m
+# ---------------------------------------------------------------------------
+
+def train_parity(torch, dev):
+    """One train step of smollm-135m at full width and 2 layers in f32,
+    on the CPU (plain versions) and on the card (flash and its gradient
+    kernel), from the same params and batch: the loss, every gradient
+    leaf (as the optimizer receives it) and the updated params agree;
+    on the card remat=True equals remat=False bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import flatten, init_params, map_tree
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train import make_train_step
+
+    base = get_config("smollm-135m")
+    cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(synthetic_batches(cfg, *PARITY_TRAIN, 1, seed=7,
+                                   device="cpu"))
+    seen = []
+
+    class Spy(AdamW):
+        """AdamW that keeps the gradients it is given."""
+
+        def update(self, grads, state, params):
+            seen.append(grads)
+            return super().update(grads, state, params)
+
+    opt = Spy(lr=1e-3, warmup_steps=1)
+    t0 = time.perf_counter()
+    p_cpu, _, m_cpu = make_train_step(cfg, opt, remat=False)(
+        params, opt.init(params), batch)
+    cpu_s = time.perf_counter() - t0
+    gp = map_tree(lambda t: t.to(dev), params)
+    gb = {k: t.to(dev) for k, t in batch.items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    p_gpu, _, m_gpu = make_train_step(cfg, opt, remat=False)(
+        gp, opt.init(gp), gb)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    p_rem, _, m_rem = make_train_step(cfg, opt, remat=True)(
+        gp, opt.init(gp), gb)
+    torch.cuda.synchronize()
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert counts["flash_attention_bwd"] == cfg.n_layers, counts
+    dl = abs(float(m_cpu["loss"]) - float(m_gpu["loss"]))
+    log(f"  loss: CPU {float(m_cpu['loss']):.6f} ({cpu_s:.1f} s), GPU "
+        f"{float(m_gpu['loss']):.6f}, |diff| {dl:.3e} (tol 1e-4); launches "
+        f"{counts}")
+    assert dl < 1e-4
+    worst = 0.0
+    names = [f"leaf {i}" for i in range(len(flatten(seen[0])))]
+    for n, a, b in zip(names, flatten(seen[0]), flatten(seen[1])):
+        err = (b.cpu() - a).abs().max().item()
+        mag = a.abs().max().item()
+        worst = max(worst, err / max(mag, 1e-30))
+        log(f"    grad {n} {tuple(a.shape)}: max_abs_err {err:.3e}, max |g| "
+            f"{mag:.3e}")
+        assert err <= 1e-4 * mag + 1e-7, (n, err, mag)
+    # Adam's first step is lr g / (|g| + 1e-8), nearly lr sign(g): where
+    # |g| is tiny, a difference in g's last digits moves the update by up
+    # to 2 lr. Held at 1e-5 where |g| >= 1e-6, at 2 lr elsewhere.
+    perr, tiny, terr = 0.0, 0, 0.0
+    for a, b, g in zip(flatten(p_cpu), flatten(p_gpu), flatten(seen[0])):
+        d = (b.cpu() - a).abs()
+        small = g.abs() < 1e-6
+        perr = max(perr, d[~small].max().item() if (~small).any() else 0.0)
+        if small.any():
+            tiny += int(small.sum())
+            terr = max(terr, d[small].max().item())
+    log(f"  gradients: worst max_abs_err / max |g| {worst:.3e} (tol 1e-4); "
+        f"updated params max_abs_err {perr:.3e} where |g| >= 1e-6 (tol "
+        f"1e-5), {terr:.3e} at the {tiny} coordinates where |g| < 1e-6 "
+        f"(tol 2 lr = {2 * opt.lr:.0e})")
+    assert perr <= 1e-5 and terr <= 2 * opt.lr
+    same = (all(torch.equal(a, b) for a, b in zip(flatten(p_gpu),
+                                                   flatten(p_rem)))
+            and all(torch.equal(a, b) for a, b in zip(flatten(seen[1]),
+                                                       flatten(seen[2])))
+            and float(m_gpu["loss"]) == float(m_rem["loss"]))
+    log(f"  remat=True equals remat=False on the card, bitwise: {same}")
+    assert same
+
+
+def train_full(torch, dev):
+    """smollm-135m at full width and depth in bf16: TRAIN_STEPS steps of
+    synthetic_batches (batch TRAIN_BATCH x seq TRAIN_SEQ, loss_chunk
+    TRAIN_CHUNK, remat=True), the launch counts set to 0 just before and
+    read just after; the loss falls; then a checkpoint saved and restored
+    and one more step equals, bitwise, the step without the round trip.
+    Returns the launch counts and the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params, flatten, init_params
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train import make_train_step
+
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    opt = AdamW(lr=1e-3, warmup_steps=5)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=True, loss_chunk=TRAIN_CHUNK)
+    batches = list(synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     TRAIN_STEPS + 1, seed=0, device=dev))
+    log(f"  {cfg.name}: {count_params(params) / 1e6:.1f} M params in bf16, "
+        f"{cfg.n_layers} layers; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"loss_chunk {TRAIN_CHUNK}, remat, AdamW lr {opt.lr}, warm-up "
+        f"{opt.warmup_steps}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))        # waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"  loss curve {[round(x, 4) for x in losses]}")
+    log(f"  mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+        f"step ms {[round(1e3 * t, 1) for t in times]} (median after the "
+        f"first {1e3 * step_s:.1f}), {tokens / step_s:.0f} tokens/s; "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches {counts}: "
+        f"flash forward {counts['flash_attention']} (once in the forward "
+        f"and once in the recompute of each layer), backward "
+        f"{counts['flash_attention_bwd']}")
+    assert all(map(math.isfinite, losses)) and last < first, losses
+    assert counts["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS
+    assert counts["flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, cfg, params, state, step=TRAIN_STEPS)
+    p_r, s_r, step = restore_checkpoint(ckpt, cfg, params, state)
+    io_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    p_a, s_a, m_a = step_fn(params, state, batches[-1])
+    p_b, s_b, m_b = step_fn(p_r, s_r, batches[-1])
+    same = (step == TRAIN_STEPS and int(s_a.step) == int(s_b.step)
+            and float(m_a["loss"]) == float(m_b["loss"])
+            and all(torch.equal(a, b) for a, b in zip(
+                flatten((p_a, s_a.mu, s_a.nu)),
+                flatten((p_b, s_b.mu, s_b.nu)))))
+    log(f"  checkpoint at step {step} saved and restored in {io_s:.1f} s; "
+        f"the next step equals the step without the round trip, bitwise: "
+        f"{same}")
+    assert same
+    return dict(counts=counts, losses=losses, step_ms=1e3 * step_s,
+                tokens_per_s=tokens / step_s, peak_bytes=peak)
+
+
 ALL_PHASES = ("1", "2", "3", "3b", "3m", "3w", "3c", "4", "5", "5f", "4m",
-              "5m", "4w", "5w", "4b")
+              "5m", "4w", "5w", "4b", "7", "7t")
 
 
 def main() -> int:
@@ -1520,6 +1866,11 @@ def main() -> int:
         kernels = check_kernels(torch, dev)
         kernels["ssd_scan"] = check_ssd(torch, dev)
         whisper_rows = check_whisper_flash(torch, dev)
+        log("[2] flash_attention_bwd vs autograd of the plain version at "
+            "training shapes")
+        bwd_rows = check_flash_bwd(torch, dev)
+        kernels["flash_attention_bwd"] = dict(bwd_rows["smollm causal"],
+                                              cases=bwd_rows)
         log(f"[2] {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         log("[3] model parity, llava-next-mistral-7b full width, 2 layers, "
@@ -1694,6 +2045,22 @@ def main() -> int:
         del params
         release(torch)
 
+    train = None
+    if "7" in phases:
+        log("[7] training parity, smollm-135m full width, 2 layers, f32, one "
+            "step, CPU plain vs GPU kernels")
+        t0 = time.perf_counter()
+        train_parity(torch, dev)
+        release(torch)
+        log(f"[7] {time.perf_counter() - t0:.1f} s")
+    if "7t" in phases:
+        log(f"[7t] training smollm-135m at full width and depth, bf16, "
+            f"{TRAIN_STEPS} steps")
+        t0 = time.perf_counter()
+        train = train_full(torch, dev)
+        release(torch)
+        log(f"[7t] {time.perf_counter() - t0:.1f} s")
+
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
         depth = (f" ({MOE_LAYERS} of 32 layers)" if mode.startswith("mixtral")
@@ -1705,12 +2072,19 @@ def main() -> int:
             f"{st['tokens_per_s']:.2f} output tokens/s over {st['wall_s']:.2f} s; "
             f"{st['graphs']['captures']} captures, {st['graphs']['replays']} "
             f"replays")
+    if train is not None:
+        log(f"[6] training smollm-135m (30 layers, bf16, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}) on {smi}: {train['step_ms']:.1f} "
+            f"ms a step, {train['tokens_per_s']:.0f} tokens/s, peak "
+            f"{train['peak_bytes'] / 2 ** 30:.2f} GiB allocated")
     log(f"[6] total {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     for kname in KERNEL_INFO:
         r = kernels.get(kname, {})
         launches = sum(st["counts"][kname] for st in serve_stats.values())
+        if kname == "flash_attention_bwd":
+            launches = train["counts"][kname] if train else 0
         rows.append(dict(
             name=kname, route="cuda", **KERNEL_INFO[kname],
             launches=launches, max_abs_err=r.get("max_abs_err"),
@@ -1720,6 +2094,13 @@ def main() -> int:
             library_call_ms=r.get("library_call_ms")))
         if "device_kernels" in r:
             rows[-1]["device_kernels"] = r["device_kernels"]
+        if kname == "flash_attention_bwd":
+            # the training shape of 7t above; the other cases below
+            rows[-1]["launches_in"] = "7t"
+            rows[-1]["cases"] = {case: {key: c[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "call_ms", "library_call_ms")}
+                for case, c in r.get("cases", {}).items()}
         if "chunk" in r:
             rows[-1]["chunk"] = {key: r["chunk"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

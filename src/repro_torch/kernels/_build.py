@@ -21,8 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "ssd_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "paged_decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,6 +90,10 @@ _SIGNATURES = {
     # window, scale, stream
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 6 + [_I] * 9 + [_F, _P]),
+    # q, k, v, o, dout, qpos, kpos, dq, dk, dv, lse, delta, b, s, S, nq,
+    # nkv, hd, dtype, causal, window, scale, stream
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 12 + [_I] * 9 + [_F, _P]),
     # q, k, v, qpos, kpos, out, partials, counters, b, S, nq, nkv, hd,
     # dtype, kv dtype, window, split_len, nsplit, scale, stream
     "decode_attention": ("decode_attention_fwd",
@@ -185,6 +189,16 @@ def check_window(window) -> int:
         return 0
     require(int(window) > 0, f"window must be positive, got {window}")
     return int(window)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a kernel that has
+    none: its output would carry no gradient at all."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel on the card yet, so its inputs "
+            f"cannot take a gradient there; run under torch.no_grad(), or "
+            f"train on the CPU")
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -115,6 +115,7 @@ def decode_attention(q, k, v, q_pos, kv_pos, *,
     global LAUNCHES
     if B.is_plain(q, k, v, q_pos, kv_pos):
         return decode_attention_ref(q, k, v, q_pos, kv_pos, window=window)
+    B.refuse_grad("decode_attention", q, k, v)
     B.require(q.dim() == 3 and k.dim() == 4 and k.shape == v.shape,
               f"decode_attention: bad shapes q{tuple(q.shape)} "
               f"k{tuple(k.shape)}")

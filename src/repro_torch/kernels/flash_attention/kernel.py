@@ -7,6 +7,12 @@ CUDA tensors launch the kernel or raise. By dtype: bf16 runs the
 tensor-core kernel (wgmma on tiles that TMA loads, which needs q, k and v
 16-byte aligned), f32 the CUDA-core kernel, whose full-f32 products the
 f32 parity checks need. Head dims 32, 64 and 128 in both.
+
+Where autograd needs the gradient (grad enabled and q, k or v requiring
+it), a CUDA call goes through ``_Flash``, a ``torch.autograd.Function``
+whose backward is the hand-written gradient kernel
+(``backward.flash_attention_bwd``); any other call launches the forward
+alone, as serving does. Positions get no gradient.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build as B
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES = 0          # kernel launches since the last reset
@@ -27,10 +34,39 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
                     causal: bool = True) -> torch.Tensor:
     """q: (b, s, nq, hd); k, v: (b, S, nkv, hd); q_pos (b, s), kv_pos
     (b, S) int32 with -1 for padding. Returns (b, s, nq, hd) in q's dtype."""
-    global LAUNCHES
     if B.is_plain(q, k, v, q_pos, kv_pos):
         return attention_ref(q, k, v, q_pos, kv_pos, window=window,
                              causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, q_pos, kv_pos, window, causal)
+    return _forward(q, k, v, q_pos, kv_pos, window, causal)
+
+
+class _Flash(torch.autograd.Function):
+    """The forward kernel, differentiated by the gradient kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, causal):
+        out = _forward(q, k, v, q_pos, kv_pos, window, causal)
+        ctx.save_for_backward(q, k, v, out, q_pos, kv_pos)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, q_pos, kv_pos = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, q_pos, kv_pos,
+                                         window=ctx.window, causal=ctx.causal)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, q_pos, kv_pos, window, causal) -> torch.Tensor:
+    """Checks and launches the forward kernel on CUDA tensors."""
+    global LAUNCHES
     B.require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
               f"flash_attention: bad shapes q{tuple(q.shape)} "
               f"k{tuple(k.shape)} v{tuple(v.shape)}")

@@ -57,3 +57,15 @@ def attention_ref(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
                              q_pos[:, i:i + _Q_CHUNK], kv_pos, window, causal)
             for i in range(0, s, _Q_CHUNK)]
     return torch.cat(outs, dim=1)
+
+
+def attention_bwd_ref(q, k, v, q_pos, kv_pos, dout, *,
+                      window: Optional[int] = None, causal: bool = True):
+    """The gradient of ``attention_ref``: (dq, dk, dv) for the output
+    gradient ``dout``, by autograd of the plain ops above (what JAX
+    derives from the reference's ``attention_ref``)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention_ref(q, k, v, q_pos, kv_pos, window=window,
+                            causal=causal)
+        return torch.autograd.grad(out, (q, k, v), dout)

@@ -36,6 +36,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths, *,
     if B.is_plain(q, k_pool, v_pool, block_tbl, lengths):
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tbl,
                                           lengths, window=window)
+    B.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     B.require(q.dim() == 3 and k_pool.dim() == 4
               and k_pool.shape == v_pool.shape,
               f"paged_decode_attention: bad shapes q{tuple(q.shape)} "

@@ -78,6 +78,8 @@ def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
         operands.append(init_state)
     if B.is_plain(*operands):
         return ssd_chunked(x, dt, a, b, c, d_skip, chunk, init_state)
+    # training mamba2 or jamba on the card needs a backward kernel first
+    B.refuse_grad("ssd_scan", *operands)
     B.require(x.dim() == 4, f"ssd_scan: x must be (B, S, H, P), got "
               f"{tuple(x.shape)}")
     bsz, S, H, P = x.shape

@@ -1,16 +1,77 @@
-"""Public model API: prefill and decode forwards against caches.
+"""Public model API: the training loss and the prefill and decode
+forwards against caches.
 
-Same functions as ``repro/models/model.py`` (``prefill_forward``,
-``decode_forward``); training (``train_forward``) is not ported yet.
+Same functions as ``repro/models/model.py``: ``train_forward`` (the
+causal-LM loss, no caches), ``prefill_forward`` and ``decode_forward``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+
+
+def _ce_loss(params, cfg: ModelConfig, h_text, targets):
+    """Token-mean cross entropy; returns (sum_nll, n_valid), f32. Targets
+    below 0 are padding: their nll is taken at index 0 and weighted 0
+    (JAX's take_along_axis wraps -1 to the last index; either is 0)."""
+    logits = T.lm_logits(params, cfg, h_text).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    idx = torch.clamp(targets.long(), min=0)[..., None]
+    nll = -torch.gather(logp, -1, idx)[..., 0]
+    mask = (targets >= 0).float()
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  *, remat: bool = True, loss_chunk: int = 0
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Causal-LM loss. batch: tokens (B,S_t), labels (B,S_t), optional
+    mm_embeds (B,n_mm,feat) and enc_frames (B,T,feat). Returns (total,
+    {"loss", "aux"}) with total = loss + 0.01 aux (the MoE layers'
+    load-balance loss).
+
+    loss_chunk > 0: the lm-head product and cross entropy run over
+    sequence chunks of that length (the last padded with targets -1, as
+    the reference pads its scan), so the (B, S, vocab) logits never exist
+    at once in the forward.
+    remat: recompute each repeat of the layer loop in the backward
+    (``transformer.run_decoder``).
+    """
+    tokens = batch["tokens"]
+    x, positions = T.embed_inputs(params, cfg, tokens, batch.get("mm_embeds"))
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = T.run_encoder(params, cfg, batch["enc_frames"])
+    h, _, aux = T.run_decoder(params, cfg, x, positions, caches=None,
+                              enc_out=enc_out, remat=remat)
+    n_mm = x.shape[1] - tokens.shape[1]
+    # next-token prediction within the text segment
+    h_pred = h[:, n_mm:][:, :-1]
+    targets = batch["labels"][:, 1:]
+    if loss_chunk and h_pred.shape[1] > loss_chunk:
+        c = loss_chunk
+        pad = (-h_pred.shape[1]) % c
+        if pad:
+            h_pred = F.pad(h_pred, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad), value=-1)
+        sum_nll = torch.zeros((), device=h.device)
+        n_valid = torch.zeros((), device=h.device)
+        for i in range(0, h_pred.shape[1], c):
+            ds, dn = _ce_loss(params, cfg, h_pred[:, i:i + c],
+                              targets[:, i:i + c])
+            sum_nll = sum_nll + ds
+            n_valid = n_valid + dn
+    else:
+        sum_nll, n_valid = _ce_loss(params, cfg, h_pred, targets)
+    loss = sum_nll / torch.clamp(n_valid, min=1.0)
+    aux_w = 0.01
+    total = loss + aux_w * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def prefill_forward(params, cfg: ModelConfig, tokens, caches,

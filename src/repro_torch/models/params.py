@@ -38,6 +38,37 @@ def leaves(tree) -> list:
     return out
 
 
+def flatten(tree) -> list:
+    """The leaves of a tree in ``jax.tree.flatten``'s order: dict keys
+    sorted, lists and tuples in order. ``leaves`` follows insertion
+    order instead; a checkpoint's ``leaf_{i}`` and the optimizer's norm
+    sum follow this one, so that they agree with the reference's."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamSpec):
+        return [x for v in tree for x in flatten(v)]
+    return [tree]
+
+
+def unflatten(like, flat) -> Any:
+    """A tree shaped as ``like`` whose leaves are ``flat``, in
+    ``flatten``'s order."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            got = {k: build(t[k]) for k in sorted(t)}
+            return {k: got[k] for k in t}
+        if isinstance(t, (list, tuple)) and not isinstance(t, ParamSpec):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
+
+
 def _stack(spec_tree, n: int):
     """Prepend a 'layers' dim to every leaf."""
     return map_tree(

@@ -7,13 +7,15 @@ MLP, top-k MoE or no ffn, and for the encoder-decoder (whisper-class:
 The reference's ``lax.scan`` over pattern repeats (and over encoder
 layers) becomes a Python loop over ``r`` that hands each layer its slice
 of the stacked parameters and cache views; the views are written in
-place.
+place. With ``remat`` each repeat runs under activation checkpointing,
+the reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -212,7 +214,8 @@ def run_encoder(params, cfg: ModelConfig, frames):
 
 def run_decoder(params, cfg: ModelConfig, x, positions, *,
                 caches: Optional[Dict[str, Any]] = None,
-                enc_out=None, prefix_len=None, pos_base=None):
+                enc_out=None, remat: bool = False, prefix_len=None,
+                pos_base=None):
     """Run all decoder layers.
 
     caches: cache dict from make_caches (serving) or None (no cache).
@@ -220,6 +223,11 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
     layer's cross-KV is computed from it and written into
     ``caches["cross"]`` (when given) at its repeat. A decode step reads
     the cross-KV from there instead.
+    remat: run each repeat of the layer loop under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    scan body in ``jax.checkpoint``: the backward recomputes the repeat's
+    activations, the flash forward kernel included, instead of keeping
+    them. For training (caches None).
     prefix_len / pos_base: paged suffix prefill against a cached prefix
     (see layers.attention_block).
     Returns (h, new_caches, aux_loss): aux_loss is the MoE layers' summed
@@ -230,9 +238,8 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
     pages = caches.get("pages") if caches is not None else None
     attn_cls = L.PagedAttnCache if pages is not None else L.AttnCache
     decode = caches is not None and x.shape[1] == 1
-    h = x
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_repeats):
+
+    def repeat(h, aux, r):
         for i, spec in enumerate(cfg.pattern):
             p = params["blocks"][i]
             if spec.mixer in ("attn", "swa"):
@@ -271,6 +278,15 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
                 h, a = MOE.moe_block({kk: t[r] for kk, t in p["moe"].items()},
                                      h, cfg)
                 aux = aux + a
+        return h, aux
+
+    h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeats):
+        if remat:
+            h, aux = checkpoint(repeat, h, aux, r, use_reentrant=False)
+        else:
+            h, aux = repeat(h, aux, r)
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
 

@@ -1,0 +1,85 @@
+"""Training step + loop.
+
+Same functions as ``repro/training/train.py``: ``jax.value_and_grad``
+becomes ``torch.autograd.grad`` over detached copies of the parameter
+leaves, the scan over microbatches a Python loop (the sum of f32
+per-micro gradients divided by n, the mean of the losses). The step is
+functional, as the reference's: it returns new params and optimizer
+state and modifies neither input. On the card attention runs the
+hand-written flash kernel and its gradient kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import train_forward
+from repro_torch.models.params import leaves, map_tree
+from repro_torch.training.optimizer import AdamW, AdamWState
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
+                    num_microbatches: int = 1, loss_chunk: int = 0,
+                    grad_specs=None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics).
+
+    num_microbatches > 1 accumulates gradients over that many slices of
+    the batch. grad_specs (the reference's sharding constraint on the
+    gradient accumulator) must be None: the port trains on one device.
+    """
+    if grad_specs is not None:
+        raise ValueError(
+            "grad_specs: sharded gradients need the port's multi-device "
+            "training, ROADMAP Queue 1 item 8; on one device pass None")
+
+    def value_and_grad(params, batch):
+        live = map_tree(lambda t: t.detach().requires_grad_(True), params)
+        total, metrics = train_forward(live, cfg, batch, remat=remat,
+                                       loss_chunk=loss_chunk)
+        flat = leaves(live)
+        gs = torch.autograd.grad(total, flat, allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(flat, gs)])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return metrics, map_tree(lambda _: next(it), params)
+
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
+        if num_microbatches <= 1:
+            metrics, grads = value_and_grad(params, batch)
+        else:
+            n = num_microbatches
+            dev = leaves(params)[0].device
+            g_sum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=dev), params)
+            l_sum = torch.zeros((), device=dev)
+            a_sum = torch.zeros((), device=dev)
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                m, g = value_and_grad(params, mb)
+                it = iter(leaves(g))
+                g_sum = map_tree(lambda a: a + next(it).float(), g_sum)
+                l_sum = l_sum + m["loss"]
+                a_sum = a_sum + m["aux"]
+            grads = map_tree(lambda g: g / n, g_sum)
+            metrics = {"loss": l_sum / n, "aux": a_sum / n}
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, dict(metrics)
+
+    return train_step
+
+
+def train_loop(cfg: ModelConfig, params, batches, *,
+               opt: Optional[AdamW] = None, remat: bool = False):
+    """Simple training loop over an iterable of batches."""
+    opt = opt or AdamW()
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=remat)
+    losses = []
+    for batch in batches:
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+    return params, opt_state, losses

@@ -29,9 +29,16 @@ routing agrees, captures into a graph, and a mixtral engine's steps
 replay bitwise with the window binding. Flash at whisper-base's two
 non-causal forms (the encoder's 1500 frames, one decode query a slot
 against 1500 cross-attention keys) equals its plain version, and a
-whisper engine's steps replay bitwise over the cross cache.
+whisper engine's steps replay bitwise over the cross cache. Flash's
+gradient kernel (``flash_attention_bwd``) equals the autograd gradient
+of the plain version over the mask forms in both dtypes, bitwise
+deterministic; autograd reaches it through ``flash_attention``; serving
+with autograd on launches what it launches without; a reduced smollm
+train step on the card equals the CPU's (remat bitwise equal); training
+mamba2 on the card raises (``ssd_scan`` has no backward kernel).
 """
 import dataclasses
+import functools
 import gc
 
 import pytest
@@ -40,10 +47,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
+from repro_torch.kernels.flash_attention import backward as FB  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
@@ -833,7 +842,7 @@ def test_launch_counts_after_replays(dev):
     assert census["decode"]["replays"] == steps - 1
     assert census["prefill"]["replays"] == len(reqs) - 1
     assert ops.launch_counts() == {
-        "flash_attention": n_layers * len(reqs),
+        "flash_attention": n_layers * len(reqs), "flash_attention_bwd": 0,
         "decode_attention": n_layers * steps,
         "paged_decode_attention": 0, "ssd_scan": 0}
     # one graph each; our kernel is one node a layer among many, named
@@ -1106,3 +1115,166 @@ def test_whisper_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
     else:
         assert eng.preempt_count == 1 and eng.resume_count == 1
         eng.assert_no_page_leaks()
+
+
+# ---------------------------------------------------------------------------
+# flash attention's gradient (csrc/flash_attention_bwd.cu) and training
+# ---------------------------------------------------------------------------
+
+def _bwd_case(dev, dtype, b, s, S, nq, nkv, hd, q_pad=None, k_pad=None,
+              causal=True, seed=0):
+    """q, k, v, dout and positions: queries at the end of the keys'
+    span when causal (a suffix over S - s earlier keys), query rows from
+    ``q_pad`` and key slots from ``k_pad`` padding (-1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn(gen, (b, s, nq, hd), dtype, dev)
+    k = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    v = _randn(gen, (b, S, nkv, hd), dtype, dev)
+    dout = _randn(gen, (b, s, nq, hd), dtype, dev)
+    qi = torch.arange(s, dtype=torch.int32, device=dev)
+    qp = qi + (S - s if causal else 0)
+    qp = torch.where(qi < (s if q_pad is None else q_pad), qp,
+                     torch.full_like(qi, -1)).repeat(b, 1)
+    ki = torch.arange(S, dtype=torch.int32, device=dev)
+    kp = torch.where(ki < (S if k_pad is None else k_pad), ki,
+                     torch.full_like(ki, -1)).repeat(b, 1)
+    return q, k, v, dout, qp.contiguous(), kp.contiguous()
+
+
+BWD_CASES = [
+    # b, s, S, nq, nkv, hd, window, causal, extra
+    (2, 64, 64, 4, 2, 64, None, True, {}),
+    (1, 100, 100, 8, 8, 32, None, True, {}),
+    (2, 128, 128, 4, 1, 64, 32, True, {}),
+    (1, 96, 160, 4, 2, 128, None, True, {}),           # suffix: S > s
+    (1, 50, 70, 4, 2, 64, None, False, {}),             # cross
+    (1, 300, 77, 8, 2, 64, None, False, {}),            # cross, S < s
+    (1, 200, 200, 9, 3, 64, None, True, dict(q_pad=150)),
+    (2, 129, 129, 16, 2, 128, 50, True, dict(k_pad=100)),
+    (1, 70, 90, 4, 4, 32, None, False, dict(q_pad=60, k_pad=80)),
+    (1, 64, 64, 2, 2, 32, None, True, dict(q_pad=0)),   # no valid row
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_matches_plain_autograd(dev, case, dtype):
+    """dq, dk, dv of the kernel against autograd of the plain version,
+    over causal, windowed, suffix, cross, padded and GQA forms; rows
+    without a valid key get zero gradients."""
+    b, s, S, nq, nkv, hd, win, causal, extra = case
+    q, k, v, dout, qp, kp = _bwd_case(dev, dtype, b, s, S, nq, nkv, hd,
+                                      causal=causal, **extra)
+    out = flash_attention(q, k, v, qp, kp, window=win, causal=causal)
+    ops.reset_launch_counts()
+    got = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp, window=win,
+                                 causal=causal)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = attention_bwd_ref(q, k, v, qp, kp, dout, window=win,
+                             causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    q_pad = extra.get("q_pad")
+    if q_pad is not None:
+        assert torch.all(got[0][:, q_pad:] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_is_deterministic(dev, dtype):
+    """No atomics: two calls on the same inputs are bitwise equal."""
+    q, k, v, dout, qp, kp = _bwd_case(dev, dtype, 2, 300, 300, 9, 3, 64)
+    out = flash_attention(q, k, v, qp, kp)
+    a = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp)
+    b = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_autograd_goes_through_the_kernels(dev, dtype):
+    """With an input requiring a gradient, flash's output carries the
+    gradient kernel: backward launches it once, with the plain version's
+    gradients; the forward's bytes equal a call without autograd."""
+    q, k, v, dout, qp, kp = _bwd_case(dev, dtype, 2, 130, 130, 8, 2, 64,
+                                      q_pad=120)
+    with torch.no_grad():
+        plain_out = flash_attention(q, k, v, qp, kp, window=40)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = flash_attention(*leaves, qp, kp, window=40)
+    assert torch.equal(out, plain_out)
+    out.backward(dout)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = attention_bwd_ref(q, k, v, qp, kp, dout, window=40)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, **TOL[dtype])
+
+
+def test_serving_launches_no_backward_with_grad_enabled(dev):
+    """A serving run with autograd on launches what it launches under
+    torch.no_grad(): no gradient kernel, the same graphs and nodes."""
+    runs = []
+    for grad in (False, True):
+        eng = _graph_engine(dev, "dense", torch.bfloat16)
+        reqs = _requests(eng, image=True)
+        ops.reset_launch_counts()
+        with torch.set_grad_enabled(grad):
+            _serve(eng, reqs)
+        torch.cuda.synchronize()
+        runs.append((ops.launch_counts(), eng.graph_census(),
+                     [r.output_tokens for r in reqs]))
+        del eng
+        gc.collect()
+    assert runs[0] == runs[1]
+    assert runs[0][0]["flash_attention_bwd"] == 0
+
+
+def _train_setup(dev, arch="smollm-135m"):
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.optimizer import AdamW
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator(device="cpu").manual_seed(0),
+                         device="cpu")
+    batch = next(synthetic_batches(cfg, 2, 96, 1, seed=5, device="cpu"))
+    return cfg, params, batch, AdamW(lr=1e-3, warmup_steps=1)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One f32 train step of reduced smollm on the card (flash and its
+    gradient kernel) against the CPU's (plain versions): loss, updated
+    params; remat=True equals remat=False on the card."""
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training.train import make_train_step
+    cfg, params, batch, opt = _train_setup(dev)
+    p_cpu, _, m_cpu = make_train_step(cfg, opt, remat=False)(
+        params, opt.init(params), batch)
+    to = functools.partial(map_tree, lambda t: t.to(dev))
+    gp, gb = to(params), to(batch)
+    ops.reset_launch_counts()
+    p_gpu, _, m_gpu = make_train_step(cfg, opt, remat=False)(
+        gp, opt.init(gp), gb)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert ops.launch_counts()["flash_attention_bwd"] == cfg.n_layers
+    p_rem, _, m_rem = make_train_step(cfg, opt, remat=True)(
+        gp, opt.init(gp), gb)
+    assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) < 1e-4
+    for a, b, c in zip(leaves(p_cpu), leaves(p_gpu), leaves(p_rem)):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+        assert torch.equal(b, c)
+
+
+def test_mamba2_training_raises_on_the_card(dev):
+    """ssd_scan has no backward kernel: a train step of mamba2 on the
+    card raises instead of returning gradients that skip the scan."""
+    from repro_torch.models.params import map_tree
+    from repro_torch.training.train import make_train_step
+    cfg, params, batch, opt = _train_setup(dev, "mamba2-370m")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           state_dim=64))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    batch = map_tree(lambda t: t.to(dev), batch)
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        make_train_step(cfg, opt, remat=False)(params, opt.init(params),
+                                               batch)

@@ -261,6 +261,12 @@ def test_dense_prefill_payload_survives_the_next_prefill(models, name):
     ("_ZN12_GLOBAL__N_112recur_kernelIfEEvPKfS2_S2_Pfiiii", "ssd_scan"),
     ("_ZN12_GLOBAL__N_110out_kernelI13__nv_bfloat16Li128ELi64EEEvPKT_PKfS7_",
      "ssd_scan"),
+    ("_ZN12_GLOBAL__N_121flash_bwd_prep_kernelI13__nv_bfloat16Li64EEEvPKT_"
+     "S4_S4_S4_PKiS6_PfS7_iiiiiiif", "flash_attention_bwd"),
+    ("_ZN12_GLOBAL__N_119flash_bwd_kv_kernelIfLi128EEEvPKT_S3_S3_S3_PKiS5_"
+     "PKfS7_PS1_S8_iiiiiif", "flash_attention_bwd"),
+    ("_ZN12_GLOBAL__N_118flash_bwd_q_kernelIfLi32EEEvPKT_S3_S3_S3_PKiS5_PKfS7_"
+     "PS1_iiiiiif", "flash_attention_bwd"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
      "St5arrayIPcLm1EEEEviT0_T1_", None),
     ("_ZN2at6native17reduce_out_kernelIfEEvv", None),
@@ -276,8 +282,9 @@ def test_graph_kernel_nodes_are_named_by_wrapper(symbol, wrapper):
 
 def test_device_kernels_per_launch():
     assert ops.device_kernels() == {
-        "flash_attention": 1, "decode_attention": 1,
-        "paged_decode_attention": 1, "ssd_scan": SK.DEVICE_KERNELS}
+        "flash_attention": 1, "flash_attention_bwd": 3,
+        "decode_attention": 1, "paged_decode_attention": 1,
+        "ssd_scan": SK.DEVICE_KERNELS}
 
 
 class _Counted:

@@ -269,6 +269,9 @@ def test_port_imports_without_jax_or_reference():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "assert {'repro_torch.training.optimizer', 'repro_torch.training.data',\n"
+        "        'repro_torch.training.train', 'repro_torch.training.checkpoint',\n"
+        "        'repro_torch.launch.train'} <= set(names), names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

@@ -22,11 +22,15 @@ Phases (every failure raises and ends the run with a non-zero code):
      as it is) under bf16 and f32 queries, a row without keys giving 0,
      timed with a bound of one byte a K/V element and, as its yardstick,
      the cache widened to bf16 plus SDPA; flash's gradient kernel
-     (flash_attention_bwd) against the autograd gradient of the plain
-     version at training shapes (smollm's 9/3 heads of 64 at b 4, s = S
-     = 2048 causal; mistral's 32/8 of 128 at 2048; whisper's non-causal
-     1500 x 1500; a window of 256; padded rows), bf16 and f32, two calls
-     bitwise equal, timed with the backward of SDPA as its yardstick;
+     (flash_attention_bwd), fed the forward's output and log-sum-exp,
+     against the autograd gradient of the plain version at training
+     shapes (smollm's 9/3 heads of 64 at b 4, s = S = 2048 causal;
+     mistral's 32/8 of 128 at 2048; whisper's non-causal 1500 x 1500 and
+     its decoder's cross-attention, 4 x 448 queries over 1500 frames; a
+     window of 256; padded rows), bf16 and f32, two calls bitwise equal,
+     timed with the backward of SDPA as its yardstick; each flash
+     correctness case also asks the forward for its log-sum-exp, held
+     against the plain version's;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged,
@@ -99,8 +103,12 @@ Phases (every failure raises and ends the run with a non-zero code):
      batch 4 x 2048, loss_chunk 512, remat, 20 steps of
      synthetic_batches: the loss curve falls; ms a step, tokens/s, peak
      memory; flash forward and backward launches (30 backward a step);
-     then a checkpoint saved, restored and one more step, bitwise equal
-     to the step without the round trip;
+     one more step traced with torch.profiler: the top device kernels,
+     the device time by launching op and by part of the step (cuBLAS,
+     flash forward, the three gradient kernels, PyTorch's own kernels),
+     each gradient kernel's share of the step; then a checkpoint saved,
+     restored and one more step, bitwise equal to the step without the
+     round trip;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases,
      and phase 7t's step time, tokens/s and peak memory.
 Every serving cluster models its transfer charges on the H100 cost
@@ -139,6 +147,8 @@ HBM_BPS = 3.35e12       # H100 SXM HBM3 bytes/s
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),   # 8-bit mantissa out
        "float32": dict(atol=1e-4, rtol=1e-4)}    # summation order only
 PARITY_TOL = dict(atol=1e-3, rtol=1e-3)          # f32 logits, CPU vs GPU
+# flash's log-sum-exp: f32 on both sides from the same rounded inputs
+LSE_TOL = TOL["float32"]
 KERNEL_INFO = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -349,11 +359,31 @@ def check_close(torch, name, label, dtype, out, ref, empty=()):
     return err
 
 
+def check_lse(torch, label, dtype, with_lse, lse_ref, out, q, k, v, qp, kp,
+              window, causal):
+    """The forward asked for each row's log-sum-exp (as training asks):
+    the lse within LSE_TOL of the plain version's, +inf on the same rows
+    (no valid key), and the output the call's without it, bitwise."""
+    got_out, lse = with_lse(q, k, v, qp, kp, window=window, causal=causal)
+    want = lse_ref(q, k, qp, kp, window=window, causal=causal)
+    inf = torch.isposinf(want)
+    same_inf = bool(torch.equal(torch.isposinf(lse), inf))
+    err = (lse[~inf] - want[~inf]).abs().max().item() if (~inf).any() else 0.
+    ok = same_inf and torch.allclose(lse[~inf], want[~inf], **LSE_TOL)
+    same = bool(torch.equal(got_out, out))
+    log(f"  flash_attention lse [{label}] {dtype}: max_abs_err={err:.3e} "
+        f"tol={LSE_TOL}, rows without keys +inf: {same_inf}, output as "
+        f"without lse: {same} {'ok' if ok and same else 'FAIL'}")
+    assert ok and same, (label, dtype, err)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_with_lse)
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
     from repro_torch.kernels.paged_decode_attention.kernel import (
         paged_decode_attention)
     from repro_torch.kernels.paged_decode_attention.ref import (
@@ -418,6 +448,8 @@ def check_kernels(torch, dev):
         err = compare("flash_attention", label, dtype, out, ref)
         if dtype == "bfloat16":
             errs.append(err)
+        check_lse(torch, label, dtype, flash_attention_with_lse,
+                  attention_lse_ref, out, q, k, v, qp, kp, win, causal)
     def flash_timing(label, kw):
         """Kernel, plain and SDPA times and the bound of one causal case."""
         def make():
@@ -608,8 +640,10 @@ def check_whisper_flash(torch, dev):
     1500), and the cross-attention of the decode step (b 4 slots, one
     query each, S 1500 encoder keys). The yardstick is SDPA with the same
     mask. Returns the two rows by name."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_with_lse)
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     nh, hd, t = 8, 64, 1500
@@ -638,8 +672,11 @@ def check_whisper_flash(torch, dev):
         errs = {}
         for dtype in ("bfloat16", "float32"):
             args = case(dtype, b, s)
+            out = kernel(*args)
             errs[dtype] = check_close(torch, "flash_attention", name, dtype,
-                                      kernel(*args), plain(*args))
+                                      out, plain(*args))
+            check_lse(torch, name, dtype, flash_attention_with_lse,
+                      attention_lse_ref, out, *args, None, False)
 
         def make():
             q, k, v, qp, kp = case("bfloat16", b, s)
@@ -661,55 +698,67 @@ def check_whisper_flash(torch, dev):
     return rows
 
 
-# the backward rows of phase 2: name -> (b, s = S, nq, nkv, hd, window,
-# causal, valid positions a row); the first is phase 7t's training shape
+# the backward rows of phase 2: name -> (b, s, S, nq, nkv, hd, window,
+# causal, valid positions a row: queries and, where S = s, keys); the first
+# is phase 7t's training shape
 BWD_CASES = {
-    "smollm causal": (TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, None, True, 2048),
-    "mistral causal": (1, 2048, 32, 8, 128, None, True, 2048),
-    "whisper encoder, non-causal": (1, 1500, 8, 8, 64, None, False, 1500),
-    "mistral window 256": (1, 1024, 32, 8, 128, 256, True, 1024),
-    "smollm padded rows 1900 of 2048": (2, 2048, 9, 3, 64, None, True, 1900),
+    "smollm causal": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 9, 3, 64, None, True,
+                      2048),
+    "mistral causal": (1, 2048, 2048, 32, 8, 128, None, True, 2048),
+    "whisper encoder, non-causal": (1, 1500, 1500, 8, 8, 64, None, False,
+                                    1500),
+    "mistral window 256": (1, 1024, 1024, 32, 8, 128, 256, True, 1024),
+    "smollm padded rows 1900 of 2048": (2, 2048, 2048, 9, 3, 64, None, True,
+                                        1900),
+    # whisper's decoder cross-attention in training: its 448-token context
+    # over the encoder's 1500 frames, 4 sequences
+    "whisper decoder cross, non-causal": (4, 448, 1500, 8, 8, 64, None, False,
+                                          448),
 }
 
 
 def check_flash_bwd(torch, dev):
     """flash_attention_bwd against the autograd gradient of the plain
     version on the card, at the training shapes of BWD_CASES, in bf16 and
-    f32: dq, dk and dv within TOL (reference magnitude printed), padded
-    query rows 0, two calls bitwise equal. Each case is timed in bf16
-    (the smollm case in f32 too) with a bound of 2.5 times the forward's
-    two products (the scores recomputed, dP, dV, dK, dQ) over the peak of
-    its dtype, and as its yardstick the backward of SDPA on the same
-    inputs (``autograd.grad`` of its output, the graph kept). Returns the
-    rows by case."""
+    f32, fed the forward's output and log-sum-exp: dq, dk and dv within
+    TOL (reference magnitude printed), padded query rows 0, two calls
+    bitwise equal. Each case is timed in bf16 (the smollm case in f32 too)
+    with a bound of 2.5 times the forward's two products (the scores
+    recomputed, dP, dV, dK, dQ) over the peak of its dtype, and as its
+    yardstick the backward of SDPA on the same inputs (``autograd.grad``
+    of its output, the graph kept). Returns the rows by case."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.flash_attention.backward import (
         flash_attention_bwd)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_with_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(2468)
 
     def inputs(case, dtype):
-        b, s, nq, nkv, hd, win, causal, n_valid = case
+        b, s, S, nq, nkv, hd, win, causal, n_valid = case
         dt = getattr(torch, dtype)
         q, k, v, dout = (
             torch.randn(shape, generator=gen, device=dev).to(dt)
-            for shape in ((b, s, nq, hd), (b, s, nkv, hd), (b, s, nkv, hd),
+            for shape in ((b, s, nq, hd), (b, S, nkv, hd), (b, S, nkv, hd),
                           (b, s, nq, hd)))
         i = torch.arange(s, dtype=torch.int32, device=dev)
-        pos = torch.where(i < n_valid, i, torch.full_like(i, -1)).repeat(
+        qp = torch.where(i < n_valid, i, torch.full_like(i, -1)).repeat(
             b, 1).contiguous()
-        out = flash_attention(q, k, v, pos, pos, window=win, causal=causal)
-        return q, k, v, out, dout, pos, pos
+        kp = qp if S == s else torch.arange(
+            S, dtype=torch.int32, device=dev).repeat(b, 1).contiguous()
+        out, lse = flash_attention_with_lse(q, k, v, qp, kp, window=win,
+                                            causal=causal)
+        return q, k, v, out, dout, lse, qp, kp
 
     def library_set(args, case):
         """SDPA's forward on the same inputs, its graph kept for repeated
         backwards: flash's function, with is_causal where the mask is the
         plain causal one and a boolean mask elsewhere."""
-        q, k, v, _, dout, qp, kp = args
-        _, s, _, _, _, win, causal, n_valid = case
+        q, k, v, _, dout, _, qp, kp = args
+        _, s, _, _, _, _, win, causal, n_valid = case
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         kw = {}
@@ -732,13 +781,13 @@ def check_flash_bwd(torch, dev):
 
     rows = {}
     for name, case in BWD_CASES.items():
-        b, s, nq, nkv, hd, win, causal, n_valid = case
+        b, s, S, nq, nkv, hd, win, causal, n_valid = case
         kw = dict(window=win, causal=causal)
 
-        def kernel(q, k, v, out, dout, qp, kp):
-            return flash_attention_bwd(q, k, v, out, dout, qp, kp, **kw)
+        def kernel(q, k, v, out, dout, lse, qp, kp):
+            return flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, **kw)
 
-        def plain(q, k, v, out, dout, qp, kp):
+        def plain(q, k, v, out, dout, lse, qp, kp):
             return attention_bwd_ref(q, k, v, qp, kp, dout, **kw)
 
         errs = {}
@@ -773,7 +822,7 @@ def check_flash_bwd(torch, dev):
                 args = inputs(case, dtype)
                 return args, library_set(args, case)
             first = make()
-            q, k, v, _, _, qp, kp = first[0]
+            q, k, v, _, _, lse, qp, kp = first[0]
             valid = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
             if causal:
                 valid &= kp[:, None, :] <= qp[:, :, None]
@@ -782,8 +831,9 @@ def check_flash_bwd(torch, dev):
             n_pairs = int(valid.sum().item())
             del valid
             el = q.element_size()
+            # q, out, dout, dq; k, v, dk, dv; lse; positions
             nbytes = el * 4 * (q.numel() + k.numel()) + 4 * (
-                qp.numel() + kp.numel())
+                lse.numel() + qp.numel() + kp.numel())
             flops = 2.5 * 4 * hd * nq * n_pairs
             if dtype == "bfloat16" and name == "smollm causal":
                 n_dev = device_kernels(torch, lambda: kernel(*first[0]))
@@ -792,7 +842,7 @@ def check_flash_bwd(torch, dev):
             r = timing(torch, first, make, kernel, plain, library, nbytes,
                        flops, plain_n=5,
                        peak=PEAK_BF16 if dtype == "bfloat16" else PEAK_F32,
-                       shape=f"{name}: b{b} s{s} S{s} nq{nq} nkv{nkv} hd{hd} "
+                       shape=f"{name}: b{b} s{s} S{S} nq{nq} nkv{nkv} hd{hd} "
                              f"{'bf16' if dtype == 'bfloat16' else 'f32'}, "
                              f"{n_pairs} valid pairs, {flops / 1e9:.2f} "
                              f"GFLOP")
@@ -1785,6 +1835,7 @@ def train_full(torch, dev):
     assert all(map(math.isfinite, losses)) and last < first, losses
     assert counts["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS
     assert counts["flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS
+    traced = trace_step(torch, step_fn, params, state, batches[-1])
 
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1805,7 +1856,70 @@ def train_full(torch, dev):
         f"{same}")
     assert same
     return dict(counts=counts, losses=losses, step_ms=1e3 * step_s,
-                tokens_per_s=tokens / step_s, peak_bytes=peak)
+                tokens_per_s=tokens / step_s, peak_bytes=peak, traced=traced)
+
+
+def kernel_class(key):
+    """The part of a training step a device kernel (a profiler row's
+    demangled name) belongs to: a hand-written kernel by its wrapper,
+    cuBLAS's products, PyTorch's own kernels, or other."""
+    from repro_torch.launch.profile_serve import wrapper_of_key
+    name = wrapper_of_key(key)
+    if name is not None:
+        return name
+    low = key.lower()
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        return "matrix products (cuBLAS)"
+    if "at::native" in key:
+        return "PyTorch's own kernels (elementwise, reductions, copies)"
+    return "other"
+
+
+def trace_step(torch, step_fn, params, state, batch):
+    """One more train step under torch.profiler, after the timed ones, its
+    results dropped: its wall time (tracing included), the device time by
+    kernel (the top ones), by the op that launched it, and by part of the
+    step, and each gradient kernel's share of the step. Returns the
+    numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import (_device_us, report,
+                                                  report_ops, wrapper_of_key)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = step_fn(params, state, batch)
+        float(result[2]["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    del result
+    report("  [7t] traced step", prof, wall_ms)
+    report_ops("  [7t] traced step", prof, top=12)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3
+    parts = {}
+    for e in kernels:
+        ms, n = parts.get(kernel_class(e.key), (0.0, 0))
+        parts[kernel_class(e.key)] = (ms + _device_us(e) / 1e3, n + e.count)
+    for part, (ms, n) in sorted(parts.items(), key=lambda x: -x[1][0]):
+        log(f"    {part}: {ms:.3f} ms of device time in {n} launches, "
+            f"{100 * ms / max(dev_ms, 1e-9):.1f} % of the step's device "
+            f"time")
+    grads = {}
+    for e in kernels:
+        if wrapper_of_key(e.key) == "flash_attention_bwd":
+            ms = _device_us(e) / 1e3
+            m = re.search(r"(\w+<[^()]*>)\(", e.key)
+            name = m.group(1) if m else e.key
+            grads[name] = grads.get(name, 0.0) + ms
+            log(f"    gradient kernel {name}: {ms:.3f} ms in "
+                f"{e.count} launches, {100 * ms / wall_ms:.1f} % of the "
+                f"traced step's wall time, {100 * ms / max(dev_ms, 1e-9):.1f}"
+                f" % of its device time")
+    return dict(wall_ms=wall_ms, device_ms=dev_ms,
+                parts={k: v[0] for k, v in parts.items()}, grads=grads)
 
 
 ALL_PHASES = ("1", "2", "3", "3b", "3m", "3w", "3c", "4", "5", "5f", "4m",
@@ -2073,10 +2187,13 @@ def main() -> int:
             f"{st['graphs']['captures']} captures, {st['graphs']['replays']} "
             f"replays")
     if train is not None:
+        tr = train["traced"]
         log(f"[6] training smollm-135m (30 layers, bf16, batch "
             f"{TRAIN_BATCH} x {TRAIN_SEQ}) on {smi}: {train['step_ms']:.1f} "
             f"ms a step, {train['tokens_per_s']:.0f} tokens/s, peak "
-            f"{train['peak_bytes'] / 2 ** 30:.2f} GiB allocated")
+            f"{train['peak_bytes'] / 2 ** 30:.2f} GiB allocated; traced step "
+            f"{tr['wall_ms']:.1f} ms wall, {tr['device_ms']:.1f} ms device, "
+            f"the gradient kernels {sum(tr['grads'].values()):.1f} ms")
     log(f"[6] total {time.perf_counter() - t_start:.1f} s")
 
     rows = []

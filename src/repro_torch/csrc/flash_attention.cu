@@ -60,6 +60,10 @@
 //   where masked, which is the reference's explicit re-masking (needed
 //   there because exp(s - max) = 1 while every key so far is masked). A
 //   row with l = 0 writes 0.
+// * Log-sum-exp: where the caller passes an lse pointer (training: the
+//   gradient kernel reads it, csrc/flash_attention_bwd.cu), the epilogue
+//   also writes each row's m * scale + log(l), +inf for a row with l = 0;
+//   serving passes null, so its launches write nothing more.
 // * Tile skipping: the producer scans kv positions four tiles at a time
 //   and loads only the tiles that hold a valid (query, key) pair for the
 //   block: not all padding, not entirely above the block's last query
@@ -77,7 +81,8 @@
 // decimal digits. Serving runs bf16, so every serving call takes the
 // tensor-core kernel. The CUDA-core kernel: one block per (batch, q head,
 // 64-query tile), a 16x16 thread grid, products as f32 FMAs, key tiles
-// without a valid pair skipped before their loads.
+// without a valid pair skipped before their loads; it writes the lse as the
+// tensor-core kernel does.
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -127,29 +132,6 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
   if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
   else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
   else wgmma_rs_n32(o, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_max(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 // The producer warp: Q once, then the K/V tiles that hold a valid pair.
@@ -350,8 +332,8 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
 template <int HD>
 __device__ __forceinline__ void consume(
     const int* __restrict__ qpos, __nv_bfloat16* __restrict__ out,
-    unsigned char* sQ, unsigned char* sK, unsigned char* sV, int* sKpos,
-    int* sMeta, uint64_t* barQ, uint64_t* fullK, uint64_t* fullV,
+    float* __restrict__ lse, unsigned char* sQ, unsigned char* sK,
+    unsigned char* sV, int* sKpos, int* sMeta, uint64_t* barQ, uint64_t* fullK, uint64_t* fullV,
     uint64_t* empty, int tid, int h, int bi, int q0, int s, int nq,
     int causal, int window, float scale_log2) {
   using C = Cfg<HD>;
@@ -443,6 +425,13 @@ __device__ __forceinline__ void consume(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = q0 + r0 + 8 * i;
     if (row >= s) continue;
+    // the row's log-sum-exp of its scaled scores, natural units (m is raw,
+    // so in log2 units first); +inf for a row without a valid key, so that
+    // every exp(s - lse) of that row is 0
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)bi * nq + h) * s + row] =
+          l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * 0.6931471805599453f
+                     : INFINITY;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // padded rows -> 0
     __nv_bfloat16* orow = out + (((size_t)bi * s + row) * nq + h) * HD +
                           2 * (lane % 4);
@@ -459,8 +448,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmq,
                 const __grid_constant__ CUtensorMap tmk,
                 const __grid_constant__ CUtensorMap tmv,
                 const int* __restrict__ qpos, const int* __restrict__ kpos,
-                __nv_bfloat16* __restrict__ out, int s, int S, int nq,
-                int nkv, int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int s, int S, int nq, int nkv, int causal, int window,
+                float scale_log2) {
   using C = Cfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -498,75 +488,24 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmq,
                               kvh, q0, s, S, causal, window);
   } else {
     // ---------------- consumers ----------------
-    consume<HD>(qpos, out, sQ, sK, sV, sKpos, sMeta, barQ, fullK, fullV,
+    consume<HD>(qpos, out, lse, sQ, sK, sV, sKpos, sMeta, barQ, fullK, fullV,
                 empty, tid, h, bi, q0, s, nq, causal, window, scale_log2);
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled through the runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// x (b, rows, heads, HD) bf16 as a 4-D map (HD, heads, rows, b), box (one
-// panel of columns, 1 head, box_rows, 1 batch row).
-template <int HD>
-CUresult encode(CUtensorMap* map, const void* x, int b, int rows, int heads,
-                int box_rows) {
-  using C = Cfg<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)rows * heads * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::PANEL, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(x), dims, strides, box, elem,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     C::SWIZZLE == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : CU_TENSOR_MAP_SWIZZLE_64B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// Errors: a CUDA runtime code, or minus the CUresult of a tensor map that
-// did not encode (ENCODE_MISSING: the driver has no cuTensorMapEncodeTiled).
-constexpr int ENCODE_MISSING = -100000;
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, int b, int s, int S, int nq, int nkv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           const void* kpos, void* out, float* lse, int b, int s, int S,
+           int nq, int nkv, int causal, int window, float scale,
+           cudaStream_t stream) {
   if (S == 0)       // no key at all: every row is fully masked, so 0
     return (int)cudaMemsetAsync(out, 0, (size_t)b * s * nq * HD * 2, stream);
   if (encode_fn() == nullptr) return ENCODE_MISSING;
   CUtensorMap mq, mk, mv;
-  CUresult r = encode<HD>(&mq, q, b, s, nq, BQ);
-  if (r == CUDA_SUCCESS) r = encode<HD>(&mk, k, b, S, nkv, BK);
-  if (r == CUDA_SUCCESS) r = encode<HD>(&mv, v, b, S, nkv, BK);
+  constexpr int P = Cfg<HD>::PANEL;
+  CUresult r = encode_heads(&mq, q, HD, b, s, nq, P, BQ);
+  if (r == CUDA_SUCCESS) r = encode_heads(&mk, k, HD, b, S, nkv, P, BK);
+  if (r == CUDA_SUCCESS) r = encode_heads(&mv, v, HD, b, S, nkv, P, BK);
   if (r != CUDA_SUCCESS) return -(int)r;
   const int smem = Cfg<HD>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -575,7 +514,7 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   dim3 grid(nq, b, (s + BQ - 1) / BQ);
   flash_tc_kernel<HD><<<grid, NT, smem, stream>>>(
       mq, mk, mv, static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-      static_cast<__nv_bfloat16*>(out), s, S, nq, nkv, causal, window,
+      static_cast<__nv_bfloat16*>(out), lse, s, S, nq, nkv, causal, window,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -603,9 +542,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, T* __restrict__ out, int s,
-                 int S, int nq, int nkv, int causal, int window,
-                 float scale) {
+                 const int* __restrict__ kpos, T* __restrict__ out,
+                 float* __restrict__ lse, int s, int S, int nq, int nkv,
+                 int causal, int window, float scale) {
   constexpr int LD = HD + 4 / (int)sizeof(T);   // odd count of 32-bit words
   constexpr int NC = HD / 16;                   // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -751,6 +690,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;
     const float den = l[i] == 0.f ? 1.f : l[i];   // padded query rows -> 0
+    // the row's log-sum-exp (m is in scaled units here); +inf without keys
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)bi * nq + h) * s + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     T* o = out + (((size_t)bi * s + row) * nq + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[tx + 16 * c] = Cvt<T>::from_f(acc[i][c] / den);
@@ -759,8 +702,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, int b, int s, int S, int nq, int nkv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           const void* kpos, void* out, float* lse, int b, int s, int S,
+           int nq, int nkv, int causal, int window, float scale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, HD>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -770,8 +714,8 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kpos), static_cast<T*>(out), s, S, nq, nkv,
-      causal, window, scale);
+      static_cast<const int*>(kpos), static_cast<T*>(out), lse, s, S, nq,
+      nkv, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -779,15 +723,15 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
 
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
-              const void* qpos, const void* kpos, void* out, int b, int s,
-              int S, int nq, int nkv, int causal, int window, float scale,
-              cudaStream_t st) {
+              const void* qpos, const void* kpos, void* out, float* lse,
+              int b, int s, int S, int nq, int nkv, int causal, int window,
+              float scale, cudaStream_t st) {
   if (dtype == rt::DTYPE_BF16)
-    return tc::launch<HD>(q, k, v, qpos, kpos, out, b, s, S, nq, nkv, causal,
-                          window, scale, st);
+    return tc::launch<HD>(q, k, v, qpos, kpos, out, lse, b, s, S, nq, nkv,
+                          causal, window, scale, st);
   if (dtype == rt::DTYPE_F32)
-    return cc::launch<float, HD>(q, k, v, qpos, kpos, out, b, s, S, nq, nkv,
-                                 causal, window, scale, st);
+    return cc::launch<float, HD>(q, k, v, qpos, kpos, out, lse, b, s, S, nq,
+                                 nkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -795,19 +739,22 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v,
 
 // q (b, s, nq, hd), k/v (b, S, nkv, hd), qpos (b, s), kpos (b, S) int32,
 // out (b, s, nq, hd); all contiguous, on the current device, q/k/v 16-byte
-// aligned (TMA). window <= 0 means no window. Returns 0, a CUDA error code
-// of the launch, or a negative code for a tensor map that did not encode.
+// aligned (TMA). lse: null (serving), or (b, nq, s) f32 that receives each
+// row's log-sum-exp of its scaled scores for the gradient (not written when
+// S == 0). window <= 0 means no window. Returns 0, a CUDA error code of the
+// launch, or a negative code for a tensor map that did not encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* qpos,
-                                   const void* kpos, void* out, int b, int s,
-                                   int S, int nq, int nkv, int hd, int dtype,
-                                   int causal, int window, float scale,
-                                   void* stream) {
+                                   const void* kpos, void* out, void* lse,
+                                   int b, int s, int S, int nq, int nkv,
+                                   int hd, int dtype, int causal, int window,
+                                   float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 32: return launch_hd<32>(dtype, q, k, v, qpos, kpos, out, b, s, S, nq, nkv, causal, window, scale, st);
-    case 64: return launch_hd<64>(dtype, q, k, v, qpos, kpos, out, b, s, S, nq, nkv, causal, window, scale, st);
-    case 128: return launch_hd<128>(dtype, q, k, v, qpos, kpos, out, b, s, S, nq, nkv, causal, window, scale, st);
+    case 32: return launch_hd<32>(dtype, q, k, v, qpos, kpos, out, l, b, s, S, nq, nkv, causal, window, scale, st);
+    case 64: return launch_hd<64>(dtype, q, k, v, qpos, kpos, out, l, b, s, S, nq, nkv, causal, window, scale, st);
+    case 128: return launch_hd<128>(dtype, q, k, v, qpos, kpos, out, l, b, s, S, nq, nkv, causal, window, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -86,11 +86,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, qpos, kpos, out, b, s, S, nq, nkv, hd, dtype, causal,
-    # window, scale, stream
+    # q, k, v, qpos, kpos, out, lse (or null), b, s, S, nq, nkv, hd, dtype,
+    # causal, window, scale, stream
     "flash_attention": ("flash_attention_fwd",
-                        [_P] * 6 + [_I] * 9 + [_F, _P]),
-    # q, k, v, o, dout, qpos, kpos, dq, dk, dv, lse, delta, b, s, S, nq,
+                        [_P] * 7 + [_I] * 9 + [_F, _P]),
+    # q, k, v, o, dout, lse, qpos, kpos, dq, dk, dv, delta, b, s, S, nq,
     # nkv, hd, dtype, causal, window, scale, stream
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P] * 12 + [_I] * 9 + [_F, _P]),

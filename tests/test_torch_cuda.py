@@ -31,9 +31,13 @@ non-causal forms (the encoder's 1500 frames, one decode query a slot
 against 1500 cross-attention keys) equals its plain version, and a
 whisper engine's steps replay bitwise over the cross cache. Flash's
 gradient kernel (``flash_attention_bwd``) equals the autograd gradient
-of the plain version over the mask forms in both dtypes, bitwise
-deterministic; autograd reaches it through ``flash_attention``; serving
-with autograd on launches what it launches without; a reduced smollm
+of the plain version over the mask forms in both dtypes (also at lengths
+no multiple of its 64-row tiles, a single query tile, a -1 gap between
+valid keys and a window across tile edges), bitwise deterministic (hd 64
+and 128); the forward's log-sum-exp equals the plain version's; autograd
+reaches the gradient through ``flash_attention``; serving with autograd
+on launches what it launches without, and asks the forward for no
+log-sum-exp; a reduced smollm
 train step on the card equals the CPU's (remat bitwise equal); training
 mamba2 on the card raises (``ssd_scan`` has no backward kernel).
 """
@@ -50,9 +54,10 @@ from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.flash_attention import backward as FB  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention, flash_attention_with_lse)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_bwd_ref, attention_ref)
+    attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
@@ -1122,23 +1127,33 @@ def test_whisper_graph_replay_equals_eager_bitwise(dev, replay_checks, kind,
 # ---------------------------------------------------------------------------
 
 def _bwd_case(dev, dtype, b, s, S, nq, nkv, hd, q_pad=None, k_pad=None,
-              causal=True, seed=0):
+              pfx=None, causal=True, seed=0):
     """q, k, v, dout and positions: queries at the end of the keys'
     span when causal (a suffix over S - s earlier keys), query rows from
-    ``q_pad`` and key slots from ``k_pad`` padding (-1)."""
+    ``q_pad`` and key slots from ``k_pad`` padding (-1). ``pfx = (span,
+    valid)``: a gathered prefix, S = span + s keys of which the first
+    ``valid`` and the s new ones are valid, a run of -1 between them, and
+    the queries' positions continuing after the valid prefix."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = _randn(gen, (b, s, nq, hd), dtype, dev)
     k = _randn(gen, (b, S, nkv, hd), dtype, dev)
     v = _randn(gen, (b, S, nkv, hd), dtype, dev)
     dout = _randn(gen, (b, s, nq, hd), dtype, dev)
     qi = torch.arange(s, dtype=torch.int32, device=dev)
-    qp = qi + (S - s if causal else 0)
+    ki = torch.arange(S, dtype=torch.int32, device=dev)
+    if pfx is not None:
+        span, valid = pfx
+        assert S == span + s
+        qp = qi + valid
+        kp = torch.cat([torch.where(ki[:span] < valid, ki[:span],
+                                    torch.full_like(ki[:span], -1)), qp])
+    else:
+        qp = qi + (S - s if causal else 0)
+        kp = torch.where(ki < (S if k_pad is None else k_pad), ki,
+                         torch.full_like(ki, -1))
     qp = torch.where(qi < (s if q_pad is None else q_pad), qp,
                      torch.full_like(qi, -1)).repeat(b, 1)
-    ki = torch.arange(S, dtype=torch.int32, device=dev)
-    kp = torch.where(ki < (S if k_pad is None else k_pad), ki,
-                     torch.full_like(ki, -1)).repeat(b, 1)
-    return q, k, v, dout, qp.contiguous(), kp.contiguous()
+    return q, k, v, dout, qp.contiguous(), kp.repeat(b, 1).contiguous()
 
 
 BWD_CASES = [
@@ -1153,6 +1168,17 @@ BWD_CASES = [
     (2, 129, 129, 16, 2, 128, 50, True, dict(k_pad=100)),
     (1, 70, 90, 4, 4, 32, None, False, dict(q_pad=60, k_pad=80)),
     (1, 64, 64, 2, 2, 32, None, True, dict(q_pad=0)),   # no valid row
+    # lengths no multiple of the 64-row tiles (a suffix, then hd 128)
+    (1, 190, 250, 6, 3, 64, None, True, {}),
+    (2, 333, 333, 8, 2, 128, None, True, {}),
+    # a single query tile: causal at hd 32 with GQA 4, and cross
+    (3, 40, 40, 4, 1, 32, None, True, {}),
+    (1, 48, 300, 4, 2, 64, None, False, {}),
+    # a gathered prefix: 100 valid keys, a run of 350 -1 slots (key tiles
+    # 2 to 6 whole), then the 100 new keys
+    (2, 100, 550, 8, 2, 128, None, True, dict(pfx=(450, 100))),
+    # a window across the 64-key tile edges at hd 128, GQA 4
+    (1, 300, 300, 16, 4, 128, 100, True, {}),
 ]
 
 
@@ -1165,9 +1191,10 @@ def test_flash_bwd_matches_plain_autograd(dev, case, dtype):
     b, s, S, nq, nkv, hd, win, causal, extra = case
     q, k, v, dout, qp, kp = _bwd_case(dev, dtype, b, s, S, nq, nkv, hd,
                                       causal=causal, **extra)
-    out = flash_attention(q, k, v, qp, kp, window=win, causal=causal)
+    out, lse = flash_attention_with_lse(q, k, v, qp, kp, window=win,
+                                        causal=causal)
     ops.reset_launch_counts()
-    got = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp, window=win,
+    got = FB.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, window=win,
                                  causal=causal)
     assert ops.launch_counts()["flash_attention_bwd"] == 1
     want = attention_bwd_ref(q, k, v, qp, kp, dout, window=win,
@@ -1184,10 +1211,43 @@ def test_flash_bwd_matches_plain_autograd(dev, case, dtype):
 def test_flash_bwd_is_deterministic(dev, dtype):
     """No atomics: two calls on the same inputs are bitwise equal."""
     q, k, v, dout, qp, kp = _bwd_case(dev, dtype, 2, 300, 300, 9, 3, 64)
-    out = flash_attention(q, k, v, qp, kp)
-    a = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp)
-    b = FB.flash_attention_bwd(q, k, v, out, dout, qp, kp)
+    out, lse = flash_attention_with_lse(q, k, v, qp, kp)
+    a = FB.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp)
+    b = FB.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_is_deterministic_at_hd128(dev, dtype):
+    """The same at head dim 128 (one dK/dV block a multiprocessor), with a
+    window and GQA 4: two calls bitwise equal."""
+    q, k, v, dout, qp, kp = _bwd_case(dev, dtype, 2, 333, 333, 16, 4, 128)
+    out, lse = flash_attention_with_lse(q, k, v, qp, kp, window=100)
+    a = FB.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, window=100)
+    b = FB.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, window=100)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_forward_lse_matches_plain(dev, case, dtype):
+    """The log-sum-exp the forward keeps for the gradient equals the plain
+    version's (f32 from the same rounded inputs on both sides, so the f32
+    tolerance), +inf on the same rows (no valid key); the output is the
+    call's without it, bitwise."""
+    b, s, S, nq, nkv, hd, win, causal, extra = case
+    q, k, v, _, qp, kp = _bwd_case(dev, dtype, b, s, S, nq, nkv, hd,
+                                   causal=causal, **extra)
+    ops.reset_launch_counts()
+    out, lse = flash_attention_with_lse(q, k, v, qp, kp, window=win,
+                                        causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = attention_lse_ref(q, k, qp, kp, window=win, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (b, nq, s)
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(want))
+    torch.testing.assert_close(lse, want, **TOL[torch.float32])
+    assert torch.equal(out, flash_attention(q, k, v, qp, kp, window=win,
+                                            causal=causal))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1228,6 +1288,43 @@ def test_serving_launches_no_backward_with_grad_enabled(dev):
         gc.collect()
     assert runs[0] == runs[1]
     assert runs[0][0]["flash_attention_bwd"] == 0
+
+
+def test_serving_forward_passes_no_lse(dev, monkeypatch):
+    """Serving, with autograd on, asks the forward for no log-sum-exp:
+    every flash launch passes a null lse pointer; the graph census is the
+    one of the same run under torch.no_grad(), one flash node a layer in
+    each dense prefill graph (with an image and without) and one decode
+    node a layer in each decode graph."""
+    from repro_torch.kernels import _build
+    real = _build.launch
+    lse_args = []
+
+    def spy(name, device, *args):
+        if name == "flash_attention":
+            lse_args.append(args[6])     # q, k, v, q_pos, kv_pos, out, lse
+        return real(name, device, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    censuses = []
+    for grad in (False, True):
+        eng = _graph_engine(dev, "dense", torch.bfloat16)
+        reqs = _requests(eng, image=True)
+        with torch.set_grad_enabled(grad):
+            _serve(eng, reqs)
+        torch.cuda.synchronize()
+        censuses.append(eng.graph_census())
+        n = eng.cfg.n_layers
+        del eng
+        gc.collect()
+    assert lse_args and all(a is None for a in lse_args)
+    assert censuses[0] == censuses[1]
+    for step, wrapper in (("decode", "decode_attention"),
+                          ("prefill", "flash_attention")):
+        census = censuses[1][step]
+        ours = {k: v for k, v in census.items() if k.endswith(" nodes")}
+        assert census["graphs"] >= 1
+        assert ours == {f"{wrapper} nodes": n * census["graphs"]}
 
 
 def _train_setup(dev, arch="smollm-135m"):

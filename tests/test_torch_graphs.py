@@ -267,6 +267,10 @@ def test_dense_prefill_payload_survives_the_next_prefill(models, name):
      "PKfS7_PS1_S8_iiiiiif", "flash_attention_bwd"),
     ("_ZN12_GLOBAL__N_118flash_bwd_q_kernelIfLi32EEEvPKT_S3_S3_S3_PKiS5_PKfS7_"
      "PS1_iiiiiif", "flash_attention_bwd"),
+    ("_ZN12_GLOBAL__N_12tc21flash_bwd_dkdv_kernelILi128EEEv14CUtensorMap_st"
+     "S2_S2_S2_PKiS4_PKfS6_P13__nv_bfloat16S8_iiiiiiff", "flash_attention_bwd"),
+    ("_ZN12_GLOBAL__N_12tc19flash_bwd_dq_kernelILi64EEEv14CUtensorMap_stS2_S2_"
+     "S2_PKiS4_PKfS6_P13__nv_bfloat16iiiiiiff", "flash_attention_bwd"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
      "St5arrayIPcLm1EEEEviT0_T1_", None),
     ("_ZN2at6native17reduce_out_kernelIfEEvv", None),

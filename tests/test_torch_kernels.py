@@ -21,8 +21,10 @@ from repro.kernels import paged_decode_attention as JP  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import backward as flash_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention, flash_attention_with_lse)
 from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
@@ -121,6 +123,122 @@ def test_flash_plain_zeroes_fully_masked_rows():
     args = _flash_inputs(FLASH_CASES[0], "float32")
     out = flash_attention(*(t for _, t in args))
     assert torch.all(out[:, -3:] == 0)
+
+
+# ---------------------------------------------------------------------------
+# flash's gradient from the forward's log-sum-exp: the arithmetic of
+# csrc/flash_attention_bwd.cu in plain ops, held against JAX
+# ---------------------------------------------------------------------------
+
+# the forms of tests/test_torch_cuda.py's BWD_CASES: causal, window,
+# suffix (S > s), cross with S > s and S < s, padded queries and keys, a
+# row table without any valid row, GQA groups 1, 2, 3, 4 and 8, head dims
+# 32, 64 and 128
+BWD_CASES = [
+    # b, s, S, nq, nkv, hd, window, causal, extra
+    (2, 64, 64, 4, 2, 64, None, True, {}),
+    (1, 100, 100, 8, 8, 32, None, True, {}),
+    (2, 128, 128, 4, 1, 64, 32, True, {}),
+    (1, 96, 160, 4, 2, 128, None, True, {}),            # suffix: S > s
+    (1, 50, 70, 4, 2, 64, None, False, {}),              # cross, S > s
+    (1, 120, 77, 8, 2, 64, None, False, {}),             # cross, S < s
+    (1, 80, 80, 9, 3, 64, None, True, dict(q_pad=60)),
+    (2, 70, 70, 16, 2, 128, 20, True, dict(k_pad=50)),
+    (1, 40, 50, 4, 4, 32, None, False, dict(q_pad=30, k_pad=44)),
+    (1, 32, 32, 2, 2, 32, None, True, dict(q_pad=0)),    # no valid row
+]
+# f32 on both sides; the sums run in another order (the softmax's
+# normalisation against the lse's subtraction), so a few ulps of the
+# largest gradient
+BWD_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _bwd_inputs(case, seed=0):
+    """numpy q, k, v, dout and positions: queries at the end of the keys'
+    span when causal, query rows from ``q_pad`` and key slots from
+    ``k_pad`` padding (-1)."""
+    b, s, S, nq, nkv, hd, _, causal, extra = case
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (rng.standard_normal(sh, dtype=np.float32) for sh in (
+        (b, s, nq, hd), (b, S, nkv, hd), (b, S, nkv, hd), (b, s, nq, hd)))
+    qi = np.arange(s, dtype=np.int32)
+    qp = qi + (S - s if causal else 0)
+    qp = np.where(qi < extra.get("q_pad", s), qp, -1).astype(np.int32)
+    ki = np.arange(S, dtype=np.int32)
+    kp = np.where(ki < extra.get("k_pad", S), ki, -1).astype(np.int32)
+    return (q, k, v, dout, np.tile(qp, (b, 1)), np.tile(kp, (b, 1)))
+
+
+def _jax_masked_scores(q, k, qp, kp, window, causal):
+    """The reference's scaled scores and masks (its ref.py), in jnp:
+    (b, nq, s, S) with -inf where a pair is masked, and the valid rows."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = jnp.asarray(q).reshape(b, s, nkv, nq // nkv, hd)
+    sc = jnp.einsum("bskgh,bTkh->bkgsT", qg, jnp.asarray(k)) * hd ** -0.5
+    qp, kp = jnp.asarray(qp), jnp.asarray(kp)
+    valid = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+    if causal:
+        valid &= kp[:, None, :] <= qp[:, :, None]
+        if window is not None:
+            valid &= kp[:, None, :] > qp[:, :, None] - window
+    sc = jnp.where(valid[:, None, None], sc, -jnp.inf).reshape(b, nq, s, -1)
+    return sc, np.asarray(valid.any(-1))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_lse_plain_matches_jax_logsumexp(case):
+    """attention_lse_ref, and flash_attention_with_lse on the CPU, equal
+    jax.nn.logsumexp of the reference's scaled, masked scores; +inf where
+    a row has no valid key."""
+    win, causal = case[6], case[7]
+    q, k, v, _, qp, kp = _bwd_inputs(case)
+    sc, rows = _jax_masked_scores(q, k, qp, kp, win, causal)
+    want = np.asarray(jax.nn.logsumexp(sc, axis=-1))          # (b, nq, s)
+    tq, tk, tv, tqp, tkp = (torch.from_numpy(x) for x in (q, k, v, qp, kp))
+    got = flash_ref.attention_lse_ref(tq, tk, tqp, tkp, window=win,
+                                      causal=causal)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    has = np.broadcast_to(rows[:, None, :], want.shape)
+    np.testing.assert_allclose(got.numpy()[has], want[has], atol=1e-5,
+                               rtol=1e-6)
+    assert np.all(np.isposinf(got.numpy()[~has]))
+    _, lse = flash_attention_with_lse(tq, tk, tv, tqp, tkp, window=win,
+                                      causal=causal)
+    assert torch.equal(lse, got)
+
+
+_jax_attention_vjp = jax.jit(
+    lambda q, k, v, dout, qp, kp, window, causal: jax.vjp(
+        lambda a, b, c: JF.attention_ref(a, b, c, qp, kp, window=window,
+                                         causal=causal), q, k, v)[1](dout),
+    static_argnames=("window", "causal"))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_from_lse_matches_jax_grad(case):
+    """attention_bwd_from_lse (the gradient kernel's arithmetic: lse and D,
+    P and dS from them, the GQA sums), fed the plain forward's output and
+    lse, equals the reference's gradient of attention_ref (jax.vjp) in
+    f32; the wrapper on CPU tensors returns it; rows without a valid key
+    get zero gradients."""
+    win, causal = case[6], case[7]
+    arrays = _bwd_inputs(case, seed=1)
+    want = _jax_attention_vjp(*(jnp.asarray(x) for x in arrays),
+                              window=win, causal=causal)
+    q, k, v, dout, qp, kp = (torch.from_numpy(x) for x in arrays)
+    out, lse = flash_attention_with_lse(q, k, v, qp, kp, window=win,
+                                        causal=causal)
+    got = flash_ref.attention_bwd_from_lse(q, k, v, out, dout, lse, qp, kp,
+                                           window=win, causal=causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+    via = flash_bwd.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp,
+                                        window=win, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(via, got))
+    empty = (qp < 0).numpy()
+    assert np.all(got[0].numpy()[empty] == 0)
 
 
 # ---------------------------------------------------------------------------

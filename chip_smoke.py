@@ -30,7 +30,12 @@ Phases (every failure raises and ends the run with a non-zero code):
      window of 256; padded rows), bf16 and f32, two calls bitwise equal,
      timed with the backward of SDPA as its yardstick; each flash
      correctness case also asks the forward for its log-sum-exp, held
-     against the plain version's;
+     against the plain version's; at glm4-9b's shapes (32 q heads over 2
+     kv heads of 128, a group of 16): flash at its 2560 prefill and a
+     512-token chunk, and the decode pair in bf16, f32 and on fp8 K/V, a
+     4096-slot window case, a row without keys, and MQA (32/1, a group of
+     32 run in two parts of 16), each timed with SDPA over K/V repeated
+     to the 32 heads as its yardstick;
   3. model parity: llava-next-mistral-7b at full width and 2 layers in
      f32, a 2880-token image prefill plus 4 teacher-forced decode steps on
      the CPU (plain versions) and on the GPU (kernels), dense and paged,
@@ -50,6 +55,10 @@ Phases (every failure raises and ends the run with a non-zero code):
      the MoE routing (top-k experts, kept selections) agrees except at
      near-ties of the router's probabilities, counted and printed, and
      outputs and logits agree wherever routing does;
+  3g. model parity: glm4-9b (group 16), deepseek-7b (MHA) and
+     openpangu-7b-vl (group 7; a 1196-token image through its 1280 ->
+     3584 projector) at full width and 2 layers in f32, a prompt plus 4
+     teacher-forced decode steps, dense and paged, CPU against GPU;
   3w. model parity: whisper-base at full width and depth in f32, a
      40-token prompt padded to 448 with 1500 stub audio frames, then 8
      greedy decode steps, on the CPU (plain versions) and on the GPU
@@ -82,6 +91,18 @@ Phases (every failure raises and ends the run with a non-zero code):
   5m. the same requests on a paged cluster with prefix cache and chunked
      prefill of 512 through run_continuous (one live prefill, so that B
      hits A's pages in the prefix cache): windowed paged decode;
+  4g. serve glm4-9b, dense: EPDCluster at full size and depth (40 layers,
+     9.40 B parameters) in bf16, max_len 2560, 4 text requests (A 2048
+     tokens; B A's first 1536 and 64 of its own; 64; 300), 16 new
+     tokens, through submit + run_until_done: replayed prefill and decode
+     graphs, the decode kernel at its group of 16; then the analytic
+     model (launch/analytic.py) read against device time: the dense
+     prefill's model-FLOPs share of 989 TFLOP/s and a decode step's
+     analytic bytes against 3.35 TB/s;
+  5g. the same requests on a paged cluster with prefix cache and chunked
+     prefill of 512 through run_continuous (one live prefill, so that B
+     hits A's pages): paged decode at the group of 16; greedy tokens
+     equal 4g's;
   4w. serve whisper-base, dense: EPDCluster at full width and depth in
      bf16, max_len 448 (its decoder context), 4
      audio requests (two share one payload) of 4-64 prompt tokens, 32 new
@@ -170,6 +191,20 @@ KERNEL_INFO = {
 }
 MAX_LEN = 3072
 IMAGE_TOKENS = 2880
+# glm4-9b: 32 q heads over 2 kv heads of 128, a group of 16
+GLM_HEADS = (32, 2)
+GLM_MAX_LEN = 2560       # its longest prompt, 2048, and 16 new tokens
+# phases 4g, 5g: A 2048 tokens, B A's first 1536 and 64 of its own (a
+# prefix-cache hit on the paged cluster), C and D short
+GLM_PROMPTS = (2048, 1536 + 64, 64, 300)
+# phase 3g: full width, 2 layers, f32, CPU against GPU
+CONFIG_PARITY = ("glm4-9b", "deepseek-7b", "openpangu-7b-vl")
+# phase 5g: the dense and the paged run may part at a bf16 near-tie
+# (their prefills differ in shape: one 2560-row prefill against 512-token
+# chunks over a cached prefix, so bf16 rounds them differently); where
+# they part, the two tokens must be the top two of a third forward over
+# the common prefix, within this many bf16 ulps of the top logit
+TIE_ULPS = 4
 SSM_MAX_LEN = 2048      # mamba2's training context, a multiple of its chunk
 SSM_PROMPTS = (64, 256, 1000, 1900)
 MOE_MAX_LEN = 6144       # past mixtral's 4096 window, a multiple of 512
@@ -377,6 +412,57 @@ def check_lse(torch, label, dtype, with_lse, lse_ref, out, q, k, v, qp, kp,
     assert ok and same, (label, dtype, err)
 
 
+def decode_inputs(torch, gen, dtype, heads, S, lengths, kv=None, hd=128):
+    """The dense decode kernel's operands, drawn from ``gen`` on its
+    device: q (b, nq, hd) in ``dtype``; a ring cache k, v (b, S, nkv, hd)
+    in ``dtype`` or stored in ``kv`` (fp8, cast as the caches cast,
+    models/layers.py to_kv) whose slots [0, length) hold positions 0..;
+    q_pos = length - 1 (-1 for a row without keys); kv_pos."""
+    from repro_torch.models.layers import to_kv
+    dev = gen.device
+    nq, nkv = heads
+    b, dt = len(lengths), getattr(torch, dtype)
+
+    def store(shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x.to(dt) if kv is None else to_kv(x, kv)
+    q = torch.randn((b, nq, hd), generator=gen, device=dev).to(dt)
+    k, v = store((b, S, nkv, hd)), store((b, S, nkv, hd))
+    t = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kpos = torch.where(t < ln[:, None], t, torch.full_like(t, -1))
+    return q, k, v, (ln - 1).contiguous(), kpos.contiguous()
+
+
+def paged_inputs(torch, gen, dtype, heads, page, max_pages, lengths,
+                 kv=None, hd=128):
+    """The paged decode kernel's operands, drawn from ``gen``: q (b, nq,
+    hd); pools (1 + b max_pages, page, nkv, hd) as ``decode_inputs``
+    stores K/V; a block table of scattered physical pages (page 0 left
+    as trash), at least one a slot; lengths."""
+    from repro_torch.models.layers import to_kv
+    dev = gen.device
+    nq, nkv = heads
+    b, dt = len(lengths), getattr(torch, dtype)
+    n_pages = 1 + b * max_pages
+
+    def store(shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x.to(dt) if kv is None else to_kv(x, kv)
+    q = torch.randn((b, nq, hd), generator=gen, device=dev).to(dt)
+    kpool = store((n_pages, page, nkv, hd))
+    vpool = store((n_pages, page, nkv, hd))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
+    off = 0
+    for i, n in enumerate(lengths):
+        used = max(1, -(-n // page))
+        tbl[i, :used] = perm[off:off + used].to(torch.int32)
+        off += used
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kpool, vpool, tbl, ln
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -388,7 +474,6 @@ def check_kernels(torch, dev):
         paged_decode_attention)
     from repro_torch.kernels.paged_decode_attention.ref import (
         paged_decode_attention_ref)
-    from repro_torch.models.layers import to_kv
 
     f8 = torch.float8_e4m3fn
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -398,12 +483,6 @@ def check_kernels(torch, dev):
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    def kv_randn(shape, dtype, kv):
-        """K/V in ``dtype``, or stored in ``kv`` (fp8) as the caches
-        store them (models/layers.py to_kv)."""
-        return (randn(shape, dtype) if kv is None
-                else to_kv(randn(shape, torch.float32), kv))
 
     compare = functools.partial(check_close, torch)
     # -- flash: engine prefill (pad to max_len), suffix chunk, window, cross
@@ -461,12 +540,13 @@ def check_kernels(torch, dev):
         first = make()
         (q, k, v, qp, kp), (_, _, _, valid) = first
         n_pairs = int(valid.sum().item())
+        h, hk, d = q.shape[2], k.shape[2], q.shape[3]
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (
             qp.numel() + kp.numel())
         return timing(torch, first, make, flash_attention, attention_ref,
-                      sdpa, nbytes, 4 * hd * nq * n_pairs, plain_n=20,
+                      sdpa, nbytes, 4 * d * h * n_pairs, plain_n=20,
                       shape=f"{label}: b1 s{q.shape[1]} S{k.shape[1]} "
-                            f"nq{nq} nkv{nkv} hd{hd} bf16, {n_pairs} valid "
+                            f"nq{h} nkv{hk} hd{d} bf16, {n_pairs} valid "
                             f"pairs")
 
     # the dense prefill, and the chunk shape that most serving launches take
@@ -475,18 +555,37 @@ def check_kernels(torch, dev):
     chunk = flash_timing(*flash_cases[2][::2])
     log_timing("flash_attention chunk", chunk)
     results["flash_attention"]["chunk"] = chunk
+    # glm4-9b's prefill forms (32/2 heads of 128, a group of 16): phase
+    # 4g's dense prefill of its 2048-token prompt padded to GLM_MAX_LEN,
+    # and phase 5g's 512-token chunk over a 1536-token cached prefix
+    glm = dict(heads=GLM_HEADS)
+    glm_cases = [
+        ("glm4 prefill 2560, 2048 valid", "bfloat16",
+         dict(s=GLM_MAX_LEN, S=GLM_MAX_LEN, n_valid=2048, **glm)),
+        ("glm4 prefill 2560, 2048 valid", "float32",
+         dict(s=GLM_MAX_LEN, S=GLM_MAX_LEN, n_valid=2048, **glm)),
+        ("glm4 chunk 512 over 2560+512, prefix 1536", "bfloat16",
+         dict(s=512, S=GLM_MAX_LEN + 512, n_valid=512, q_off=1536, pfx=1536,
+              **glm))]
+    errs = []
+    for label, dtype, kw in glm_cases:
+        q, k, v, qp, kp, win, causal = flash_case(dtype, **kw)
+        out = flash_attention(q, k, v, qp, kp, window=win, causal=causal)
+        ref = attention_ref(q, k, v, qp, kp, window=win, causal=causal)
+        err = compare("flash_attention", label, dtype, out, ref)
+        if dtype == "bfloat16":
+            errs.append(err)
+    results["flash_attention_glm4"] = dict(
+        max_abs_err=max(errs), **flash_timing(*glm_cases[0][::2]))
+    results["flash_attention_glm4"]["chunk"] = flash_timing(
+        *glm_cases[2][::2])
+    log_timing("flash_attention glm4 chunk",
+               results["flash_attention_glm4"]["chunk"])
 
     # -- dense decode: 4 slots of a 3072 ring buffer, ragged lengths
     def decode_case(dtype, lengths, window=None, kv=None):
-        dt = getattr(torch, dtype)
-        b = len(lengths)
-        q = randn((b, nq, hd), dt)
-        k = kv_randn((b, MAX_LEN, nkv, hd), dt, kv)
-        v = kv_randn((b, MAX_LEN, nkv, hd), dt, kv)
-        t = torch.arange(MAX_LEN, dtype=torch.int32, device=dev)[None]
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        kpos = torch.where(t < ln[:, None], t, torch.full_like(t, -1))
-        return q, k, v, (ln - 1).contiguous(), kpos.contiguous(), window
+        return (*decode_inputs(torch, gen, dtype, (nq, nkv), MAX_LEN,
+                               lengths, kv), window)
 
     errs = []
     for label, dtype, lengths, win in [
@@ -521,21 +620,8 @@ def check_kernels(torch, dev):
     page, max_pages = 16, MAX_LEN // 16
 
     def paged_case(dtype, lengths, window=None, kv=None):
-        dt = getattr(torch, dtype)
-        b = len(lengths)
-        n_pages = 1 + b * max_pages
-        q = randn((b, nq, hd), dt)
-        kp_ = kv_randn((n_pages, page, nkv, hd), dt, kv)
-        vp_ = kv_randn((n_pages, page, nkv, hd), dt, kv)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-        tbl = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
-        off = 0
-        for i, n in enumerate(lengths):
-            used = max(1, -(-n // page))
-            tbl[i, :used] = perm[off:off + used].to(torch.int32)
-            off += used
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        return q, kp_, vp_, tbl, ln, window
+        return (*paged_inputs(torch, gen, dtype, (nq, nkv), page, max_pages,
+                              lengths, kv), window)
 
     errs = []
     for label, dtype, lengths, win in [
@@ -631,6 +717,129 @@ def check_kernels(torch, dev):
         log_timing(f"{name} fp8", r)
         results[name]["fp8"] = r
     return results
+
+
+def check_decode_groups(torch, dev):
+    """The decode pair at glm4-9b's group of 16 (32 q heads over 2 kv
+    heads of 128) and at an MQA group of 32 (32/1, two parts of 16 along
+    the grid): b 4 over 3072 slots, lengths [2960, 3000, 100, 64], page
+    16, in bf16, f32 and on fp8 K/V under bf16 q, a 4096-slot case with a
+    window of 1024, and a row without keys (which gives 0). Each row is
+    held against the plain version (TOL of q's dtype) and timed as phase
+    2's rows: cold device ms, call_ms, the plain version, the bound, and
+    as the yardstick SDPA with the same mask over K/V repeated to the 32
+    q heads (fp8: widened to bf16 inside the timed call). Returns
+    {wrapper: {case: row}}."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.paged_decode_attention.kernel import (
+        paged_decode_attention)
+    from repro_torch.kernels.paged_decode_attention.ref import (
+        paged_decode_attention_ref)
+
+    f8 = torch.float8_e4m3fn
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    hd, page = 128, 16
+    lens = [2960, 3000, 100, 64]
+    no_keys = [2960, 0, 100, 64]
+
+    def visible(pos, qp, window):
+        """Keys each query sees: (b, S) bool."""
+        ok = (pos >= 0) & (pos <= qp[:, None])
+        if window is not None:
+            ok &= pos > qp[:, None] - window
+        return ok
+
+    def library_args(q, k, v, ok):
+        """SDPA's operands: q (b, nq, 1, hd), K/V (b, nkv, S, hd)
+        repeated to the nq heads, the mask (b, 1, 1, S)."""
+        g = q.shape[1] // k.shape[2]
+        kt, vt = (x.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+                  for x in (k, v))
+        return q[:, :, None], kt, vt, ok[:, None, None]
+
+    def dense(dtype, heads, S, lengths, window, kv):
+        q, k, v, qp, kp = decode_inputs(torch, gen, dtype, heads, S,
+                                        lengths, kv)
+        ok = visible(kp, qp, window)
+        return ((q, k, v, qp, kp), library_args(q, k, v, ok),
+                int(ok.sum()), 4 * (kp.numel() + qp.numel()))
+
+    def paged(dtype, heads, S, lengths, window, kv):
+        b, nkv = len(lengths), heads[1]
+        q, kpool, vpool, tbl, ln = paged_inputs(torch, gen, dtype, heads,
+                                                page, S // page, lengths, kv)
+        kd, vd = (x[tbl.long()].reshape(b, -1, nkv, hd)
+                  for x in (kpool, vpool))
+        t = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        ok = visible(torch.where(t < ln[:, None], t, torch.full_like(t, -1)),
+                     ln - 1, window)
+        n_pg = sum(-(-n // page) for n in lengths)
+        return ((q, kpool, vpool, tbl, ln), library_args(q, kd, vd, ok),
+                int(ok.sum()), 4 * (n_pg + b))
+
+    def widened_sdpa(q, k, v, mask):
+        return sdpa(q, k.to(torch.bfloat16), v.to(torch.bfloat16), mask)
+
+    # (label, q dtype, heads, slots, lengths, window, K/V storage, timed)
+    cases = [("g16 bf16", "bfloat16", GLM_HEADS, MAX_LEN, lens, None, None,
+              True),
+             ("g16 f32", "float32", GLM_HEADS, MAX_LEN, lens, None, None,
+              True),
+             ("g16 fp8 K/V", "bfloat16", GLM_HEADS, MAX_LEN, lens, None, f8,
+              True),
+             ("g16 S4096 window 1024", "bfloat16", GLM_HEADS, 4096,
+              [4096, 3000, 100, 64], 1024, None, True),
+             ("g16 row 1 without keys", "bfloat16", GLM_HEADS, MAX_LEN,
+              no_keys, None, None, False),
+             ("g16 fp8 K/V, row 1 without keys", "bfloat16", GLM_HEADS,
+              MAX_LEN, no_keys, None, f8, False),
+             ("g32 MQA bf16", "bfloat16", (32, 1), MAX_LEN, lens, None, None,
+              True),
+             ("g32 MQA f32", "float32", (32, 1), MAX_LEN, lens, None, None,
+              True),
+             ("g32 MQA fp8 K/V", "bfloat16", (32, 1), MAX_LEN, lens, None, f8,
+              True),
+             ("g32 MQA row 1 without keys", "float32", (32, 1), MAX_LEN,
+              no_keys, None, None, False)]
+    wrappers = {"decode_attention": (dense, decode_attention,
+                                     decode_attention_ref),
+                "paged_decode_attention": (paged, paged_decode_attention,
+                                           paged_decode_attention_ref)}
+    out = {}
+    for wname, (make_case, kernel, plain) in wrappers.items():
+        rows = out[wname] = {}
+        for label, dtype, heads, S, lengths, window, kv, timed in cases:
+            def make():
+                return make_case(dtype, heads, S, lengths, window, kv)
+            args, largs, n_tok, n_pos = make()
+            kern = functools.partial(kernel, window=window)
+            ref = functools.partial(plain, window=window)
+            err = check_close(torch, wname, f"{label}, {heads[0]}/{heads[1]} "
+                              f"heads", dtype, kern(*args), ref(*args),
+                              empty=[i for i, n in enumerate(lengths)
+                                     if n == 0])
+            if not timed:
+                rows[label] = dict(max_abs_err=err)
+                continue
+            q = args[0]
+            elt = 1 if kv is not None else q.element_size()
+            nbytes = (2 * n_tok * heads[1] * hd * elt
+                      + 2 * q.numel() * q.element_size() + n_pos)
+            r = timing(torch, (args, largs), lambda: make()[:2], kern, ref,
+                       widened_sdpa if kv is not None else sdpa, nbytes,
+                       4 * hd * heads[0] * n_tok,
+                       peak=PEAK_F32 if dtype == "float32" else PEAK_BF16,
+                       shape=f"{label}: b{len(lengths)} S{S} nq{heads[0]} "
+                             f"nkv{heads[1]} hd{hd} {dtype} q"
+                             + (", fp8 K/V" if kv is not None else "")
+                             + f", lengths {lengths}"
+                             + (f", window {window}" if window else ""))
+            rows[label] = dict(max_abs_err=err, **r)
+            log_timing(f"{wname} {label}", r)
+            del args, largs
+    release(torch)
+    return out
 
 
 def check_whisper_flash(torch, dev):
@@ -1379,6 +1588,100 @@ def whisper_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: the configs no other phase serves, CPU against GPU
+# ---------------------------------------------------------------------------
+
+def config_parity(torch, dev):
+    """glm4-9b (a group of 16), deepseek-7b (MHA) and openpangu-7b-vl (a
+    group of 7, run at width 8; its 1196-token image through the 1280 ->
+    3584 projector) at full width and 2 layers in f32: a prompt prefilled
+    and 4 teacher-forced decode steps, dense and paged, on the CPU (the
+    port's plain versions) and on the GPU (the kernels); logits within
+    PARITY_TOL, and each step launched the kernels it should."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import frontend as FE
+    from repro_torch.models.model import decode_forward, prefill_forward
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.models.transformer import make_caches
+
+    forced = [5, 17, 42, 99]
+    for arch in CONFIG_PARITY:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
+        t0 = time.perf_counter()
+        params_gpu = init_params(cfg,
+                                 torch.Generator(device=dev).manual_seed(7),
+                                 device=dev, dtype=torch.float32)
+        params_cpu = map_tree(lambda t: t.cpu(), params_gpu)
+        n_img = cfg.frontend.tokens_per_item if cfg.frontend else 0
+        n_text, mm_pos = (40, 8) if n_img else (300, 0)
+        n = n_text + n_img
+        S = -(-n // 512) * 512
+        text = [(7 * i + 3) % cfg.vocab for i in range(n_text)]
+        toks = torch.zeros((1, S), dtype=torch.int32)
+        toks[0, :mm_pos] = torch.tensor(text[:mm_pos], dtype=torch.int32)
+        toks[0, mm_pos + n_img:n] = torch.tensor(text[mm_pos:],
+                                                 dtype=torch.int32)
+        patches = (FE.stub_embeddings(cfg, b"chip-smoke 3g", n_img)
+                   if n_img else None)
+        log(f"  {arch}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads of {cfg.head_dim}, vocab {cfg.vocab}, tied "
+            f"{cfg.tie_embeddings}, 2 of {base.n_layers} layers; prompt "
+            f"{n_text} text + {n_img} image tokens padded to {S}; params "
+            f"made in {time.perf_counter() - t0:.1f} s")
+
+        def run(params, device, layout):
+            kw = {}
+            if layout == "paged":
+                kw = dict(layout="paged", page_size=16, n_pages=1 + S // 16)
+            caches = make_caches(cfg, 1, S, dtype=torch.float32,
+                                 device=device, **kw)
+            if layout == "paged":
+                caches["pages"][0] = torch.arange(1, 1 + S // 16,
+                                                  dtype=torch.int32)
+            mm = {}
+            if patches is not None:
+                feats = (patches.to(device) @ params["projector"]).float()
+                mm = dict(mm_feats=feats[None], mm_start=mm_pos)
+            logits, caches = prefill_forward(
+                params, cfg, toks.to(device), caches,
+                lengths=torch.tensor([n], dtype=torch.int32, device=device),
+                **mm)
+            out = [logits.cpu()]
+            for t in forced:
+                logits, caches = decode_forward(
+                    params, cfg, torch.tensor([t], dtype=torch.int32,
+                                              device=device), caches)
+                out.append(logits.cpu())
+            return out
+
+        for layout in ("dense", "paged"):
+            t0 = time.perf_counter()
+            ref = run(params_cpu, "cpu", layout)
+            t1 = time.perf_counter()
+            ops.reset_launch_counts()
+            got = run(params_gpu, dev, layout)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            wrapper = ("paged_decode_attention" if layout == "paged"
+                       else "decode_attention")
+            assert counts["flash_attention"] == cfg.n_layers, counts
+            assert counts[wrapper] == len(forced) * cfg.n_layers, counts
+            for i, (a, b) in enumerate(zip(got, ref)):
+                err = (a - b).abs().max().item()
+                ok = torch.allclose(a, b, **PARITY_TOL)
+                log(f"  {arch} {layout} step {i}: logits max_abs_err="
+                    f"{err:.3e} (max |logit| {b.abs().max().item():.3e}) "
+                    f"tol={PARITY_TOL} {'ok' if ok else 'FAIL'}")
+                assert ok and torch.isfinite(a).all(), (arch, layout, i, err)
+            log(f"  {arch} {layout}: cpu {t1 - t0:.1f} s, gpu "
+                f"{time.perf_counter() - t1:.1f} s; launches {counts}")
+        del params_gpu, params_cpu
+        release(torch)
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
 
@@ -1562,15 +1865,17 @@ def ssm_requests(cfg):
 
 
 def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
-          kv_dtype=None, hits="store", run_kw=None, **kw):
+          kv_dtype=None, hits="store", run_kw=None, probe=None, **kw):
     """Serve ``reqs`` on a fresh EPDCluster with the launch counters set
     to 0 just before and read just after; every kernel in ``path`` must
     have launched. ``kv_dtype``: the cluster's engines rebuilt to store
     K/V in it, as ``launch/serve.py --kv-fp8`` does. ``hits``: what a
     paged run must have hit at least once, the MM store ("store", an
     image shared by two requests) or the prefix cache ("prefix").
-    ``run_kw``: options of ``run_continuous``. The cluster models its
-    transfer charges on the card's cost profile (``costmodel.H100``)."""
+    ``run_kw``: options of ``run_continuous``. ``probe(cluster)``: run
+    after the timed run, before the cluster is dropped; its result is
+    the stats' "probe". The cluster models its transfer charges on the
+    card's cost profile (``costmodel.H100``)."""
     from repro_torch.core.cluster import EPDCluster
     from repro_torch.core.costmodel import H100
     from repro_torch.kernels import ops
@@ -1637,9 +1942,138 @@ def serve(torch, dev, cfg, params, mode, reqs, max_len, continuous, path,
     for r in reqs:
         log(f"    req {r.request_id} ({len(r.prompt_tokens)} text + "
             f"{r.mm_tokens} image tokens) -> {r.output_tokens}")
+    if probe is not None:
+        stats["probe"] = probe(cluster)
     del cluster
     release(torch)
     return stats
+
+
+def glm_requests(cfg):
+    """The four text requests of phases 4g and 5g (GLM_PROMPTS), 16 new
+    tokens each; B's first 1536 tokens are A's."""
+    from repro_torch.serving.request import Request
+    a = [(13 * j + 1) % cfg.vocab for j in range(GLM_PROMPTS[0])]
+    prompts = [a, a[:1536] + [(7 * j + 5) % cfg.vocab
+                              for j in range(GLM_PROMPTS[1] - 1536)]]
+    prompts += [[(11 * i + 3 * j + 2) % cfg.vocab for j in range(n)]
+                for i, n in enumerate(GLM_PROMPTS[2:])]
+    return [Request(prompt_tokens=p, max_new_tokens=16) for p in prompts]
+
+
+def greedy_agreement(torch, dev, cfg, params, reqs, dense, paged):
+    """Hold the dense and the paged run's greedy tokens to each other: a
+    request's tokens are equal up to its first difference, if any; there
+    one eager prefill of the prompt and the common tokens (a third
+    computation, on a dense cache) must rank the two runs' tokens first
+    and second, TIE_ULPS bf16 ulps of the top logit apart at most (a
+    near-tie that bf16 rounding breaks either way). Tokens after the
+    difference are not compared. Returns the number of requests whose
+    tokens are all equal."""
+    from repro_torch.models.model import prefill_forward
+    from repro_torch.models.transformer import make_caches
+
+    equal = 0
+    for r, a, b in zip(reqs, dense, paged):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            equal += 1
+            continue
+        seq = list(r.prompt_tokens) + a[:i]
+        S = -(-len(seq) // 512) * 512
+        toks = torch.zeros((1, S), dtype=torch.int32, device=dev)
+        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        caches = make_caches(cfg, 1, S, dtype=params["embed"].dtype,
+                             device=dev)
+        logits, _ = prefill_forward(params, cfg, toks, caches,
+                                    lengths=torch.tensor([len(seq)],
+                                                         dtype=torch.int32,
+                                                         device=dev))
+        top2 = torch.topk(logits[0], 2)
+        gap = abs(logits[0, a[i]] - logits[0, b[i]]).item()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top2.values[0].item()))) - 7)
+        ok = (set(top2.indices.tolist()) == {a[i], b[i]}
+              and gap <= TIE_ULPS * ulp)
+        log(f"    req of {len(r.prompt_tokens)} tokens: dense and paged part "
+            f"at new token {i} ({a[i]} against {b[i]}); a third forward "
+            f"over the common prefix ranks {top2.indices.tolist()} first, "
+            f"logits {[round(v, 4) for v in top2.values.tolist()]}, gap "
+            f"{gap:.4f} = {gap / ulp:.2f} bf16 ulps (at most {TIE_ULPS}) "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, (i, a[i], b[i], gap, ulp)
+        del caches
+    release(torch)
+    return equal
+
+
+def device_time_ms(torch, fn):
+    """Device time of one call of ``fn``: the sum of the times of the
+    kernels it ran (a graph replay's included), as torch.profiler records
+    them; gaps between kernels are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert ms > 0, "torch.profiler recorded no device time"
+    return ms
+
+
+def analytic_readings(torch, cfg, reqs, smi):
+    """Phase 4g's probe: the analytic model (``launch/analytic.py``)
+    against device time, on the served cluster. The dense prefill: one
+    more replayed prefill of the longest prompt, ``step_flops`` of an
+    InputShape of its length over its device time, as a share of 989
+    TFLOP/s. A decode step: the four prompts prefilled and inserted into
+    the decode engine, one step, ``step_hbm_bytes`` of an InputShape of
+    their mean length and batch 4 over its device time, against 3.35
+    TB/s. Printed readings, not claims."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.analytic import step_flops, step_hbm_bytes
+    from repro_torch.serving.request import Request
+
+    def probe(cluster):
+        pe, de = cluster.prefill_engine, cluster.decode_engine
+        longest = max(reqs, key=lambda r: len(r.prompt_tokens))
+        r = Request(prompt_tokens=list(longest.prompt_tokens),
+                    max_new_tokens=4)
+        pe.prefill_request(r)
+        n = len(r.prompt_tokens)
+        pre_ms = device_time_ms(torch, lambda: pe.prefill_request(r))
+        flops = step_flops(cfg, InputShape("4g prefill", n, 1, "prefill"))
+        share = flops / (pre_ms / 1e3) / PEAK_BF16
+        fresh = [Request(prompt_tokens=list(q.prompt_tokens),
+                         max_new_tokens=8) for q in reqs]
+        for q in fresh:
+            first, kv = pe.prefill_request(q)
+            de.insert(q, kv, first)
+        de.decode_step()
+        ctx = [len(q.prompt_tokens) + len(q.output_tokens) for q in fresh]
+        dec_ms = device_time_ms(torch, de.decode_step)
+        shape = InputShape("4g decode", sum(ctx) // len(ctx), len(ctx),
+                           "decode")
+        nbytes = step_hbm_bytes(cfg, shape, 1)
+        rate = nbytes / (dec_ms / 1e3)
+        log(f"  [4g] analytic, dense prefill of {n} tokens: step_flops "
+            f"{flops:.4e} over {pre_ms:.3f} ms of device time = "
+            f"{flops / (pre_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+            f"{100 * share:.1f} % of {PEAK_BF16 / 1e12:.0f} TFLOP/s "
+            f"({smi})")
+        log(f"  [4g] analytic, decode step of batch {len(ctx)}, mean "
+            f"context {shape.seq_len}: step_hbm_bytes {nbytes:.4e} over "
+            f"{dec_ms:.3f} ms of device time = {rate / 1e12:.3f} TB/s, "
+            f"{100 * rate / HBM_BPS:.1f} % of {HBM_BPS / 1e12:.2f} TB/s "
+            f"({smi})")
+        return dict(prefill_tokens=n, prefill_flops=flops,
+                    prefill_device_ms=pre_ms, flops_share=share,
+                    decode_batch=len(ctx), decode_context=shape.seq_len,
+                    decode_bytes=nbytes, decode_device_ms=dec_ms,
+                    hbm_share=rate / HBM_BPS)
+    return probe
 
 
 def ptxas_summary(text):
@@ -1922,8 +2356,8 @@ def trace_step(torch, step_fn, params, state, batch):
                 parts={k: v[0] for k, v in parts.items()}, grads=grads)
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3m", "3w", "3c", "4", "5", "5f", "4m",
-              "5m", "4w", "5w", "4b", "7", "7t")
+ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "4", "5", "5f",
+              "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7", "7t")
 
 
 def main() -> int:
@@ -1973,11 +2407,14 @@ def main() -> int:
                 f"shared {smem} bytes static"
                 + (f" + {dyn} dynamic" if dyn is not None else ""))
 
-    kernels, whisper_rows = {}, {}
+    kernels, whisper_rows, groups = {}, {}, {}
     if "2" in phases:
         log("[2] kernels vs plain versions at the serving shapes")
         t0 = time.perf_counter()
         kernels = check_kernels(torch, dev)
+        log("[2] the decode pair at glm4-9b's group of 16 and an MQA group "
+            "of 32")
+        groups = check_decode_groups(torch, dev)
         kernels["ssd_scan"] = check_ssd(torch, dev)
         whisper_rows = check_whisper_flash(torch, dev)
         log("[2] flash_attention_bwd vs autograd of the plain version at "
@@ -2004,6 +2441,12 @@ def main() -> int:
         t0 = time.perf_counter()
         moe_parity(torch, dev)
         log(f"[3m] {time.perf_counter() - t0:.1f} s")
+    if "3g" in phases:
+        log(f"[3g] model parity, {', '.join(CONFIG_PARITY)} full width, 2 "
+            f"layers, f32, CPU plain vs GPU kernels")
+        t0 = time.perf_counter()
+        config_parity(torch, dev)
+        log(f"[3g] {time.perf_counter() - t0:.1f} s")
     if "3w" in phases:
         log("[3w] model parity, whisper-base full width and depth, f32, "
             "CPU plain vs GPU kernels, layer by layer")
@@ -2101,6 +2544,59 @@ def main() -> int:
             log(f"[5m] {time.perf_counter() - t0:.1f} s")
         del params
         release(torch)
+    if phases & {"4g", "5g"}:
+        from repro_torch.kernels.decode_attention.kernel import group_width
+        cfg = get_config("glm4-9b")
+        g = cfg.n_heads // cfg.n_kv_heads
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_par = count_params(params)
+        log(f"[4g] {cfg.name}: {n_par / 1e9:.3f} B params, "
+            f"{2 * n_par / 2 ** 30:.1f} GiB in bf16 ({cfg.n_layers} layers, "
+            f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
+            f"{cfg.head_dim}: the decode pair at group width "
+            f"{group_width(g)}), made in {time.perf_counter() - t0:.1f} s; "
+            f"max_len {GLM_MAX_LEN}, prompts {GLM_PROMPTS}, 16 new tokens "
+            f"each")
+        if "4g" in phases:
+            log("[4g] serve, dense: submit + run_until_done")
+            t0 = time.perf_counter()
+            reqs = glm_requests(cfg)
+            serve_stats["glm4 dense"] = serve(
+                torch, dev, cfg, params, "glm4 dense", reqs, GLM_MAX_LEN,
+                False, attn[:2], probe=analytic_readings(torch, cfg, reqs,
+                                                          smi))
+            log(f"[4g] {time.perf_counter() - t0:.1f} s")
+        if "5g" in phases:
+            log("[5g] serve, paged (prefix cache, chunked prefill 512): "
+                "run_continuous, one live prefill, so that B's prefill finds "
+                "A's pages in the prefix cache")
+            t0 = time.perf_counter()
+            serve_stats["glm4 paged"] = serve(
+                torch, dev, cfg, params, "glm4 paged", glm_requests(cfg),
+                GLM_MAX_LEN, True, (attn[0], attn[2]), hits="prefix",
+                run_kw=dict(max_live_prefills=1), paged=True, page_size=16,
+                prefix_cache=True, chunked_prefill=True, prefill_chunk=512)
+            log(f"[5g] {time.perf_counter() - t0:.1f} s")
+        for mode, wrapper in (("glm4 dense", "decode_attention"),
+                              ("glm4 paged", "paged_decode_attention")):
+            if mode in serve_stats:
+                log(f"[{mode}] the decode pair's launches, every one at "
+                    f"group {g} (width {group_width(g)}): "
+                    f"{serve_stats[mode]['counts'][wrapper]} {wrapper}")
+        if "glm4 dense" in serve_stats and "glm4 paged" in serve_stats:
+            dense = serve_stats["glm4 dense"]["outputs"]
+            paged = serve_stats["glm4 paged"]["outputs"]
+            log(f"[5g] dense and paged greedy outputs identical: "
+                f"{dense == paged}")
+            n = greedy_agreement(torch, dev, cfg, params, glm_requests(cfg),
+                                 dense, paged)
+            log(f"[5g] {n} of {len(dense)} requests' greedy tokens equal in "
+                f"full; each other parts at a bf16 near-tie")
+        del params
+        release(torch)
     if phases & {"4w", "5w"}:
         cfg = get_config("whisper-base")
         t0 = time.perf_counter()
@@ -2178,6 +2674,7 @@ def main() -> int:
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
         depth = (f" ({MOE_LAYERS} of 32 layers)" if mode.startswith("mixtral")
+                 else " (40 layers, full size)" if mode.startswith("glm4")
                  else "")
         log(f"[6] {mode}{depth} on {smi}: TTFT ms {[round(x, 2) for x in st['ttft_ms']]} "
             f"(mean {statistics.mean(st['ttft_ms']):.2f}); TPOT ms "
@@ -2253,6 +2750,32 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by"),
             library_ms=r.get("library_ms"), call_ms=r.get("call_ms"),
             library_call_ms=r.get("library_call_ms")))
+    # glm4-9b's forms: flash at its prefill (launches in 4g + 5g), the
+    # decode pair at its group of 16 (launches in 4g, dense, and 5g,
+    # paged); the other group cases, MQA's 32 among them, under "cases"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "library_call_ms")
+    runs = [serve_stats[m] for m in ("glm4 dense", "glm4 paged")
+            if m in serve_stats]
+    r = kernels.get("flash_attention_glm4", {})
+    rows.append(dict(
+        name="flash_attention_glm4", route="cuda",
+        **KERNEL_INFO["flash_attention"],
+        launches=sum(st["counts"]["flash_attention"] for st in runs),
+        launches_in="4g+5g", **{k: r.get(k) for k in keys}))
+    if "chunk" in r:
+        rows[-1]["chunk"] = {k: r["chunk"][k] for k in keys[1:]}
+    for wname, mode, where in (("decode_attention", "glm4 dense", "4g"),
+                               ("paged_decode_attention", "glm4 paged",
+                                "5g")):
+        cases = groups.get(wname, {})
+        r = cases.get("g16 bf16", {})
+        run = serve_stats.get(mode)
+        rows.append(dict(
+            name=f"{wname}_group16", route="cuda", **KERNEL_INFO[wname],
+            launches=run["counts"][wname] if run else 0, launches_in=where,
+            **{k: r.get(k) for k in keys},
+            cases={c: {k: v.get(k) for k in keys} for c, v in cases.items()}))
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

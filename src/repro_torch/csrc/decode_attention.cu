@@ -10,8 +10,8 @@
 // heads of a kv head handled together.
 //
 // What bounds it on the card: the K/V bytes of the valid slots (each
-// element feeds only g = 4 multiply-adds per product on the serving
-// path), so the least time is those bytes over 3.35 TB/s.
+// element feeds only g multiply-adds per product, 4 for llava and 16 for
+// glm4-9b), so the least time is those bytes over 3.35 TB/s.
 // What the design does about it (details in decode_common.cuh): the TPU
 // kernel walked the KV blocks as its sequential innermost grid axis; here
 // the walk is split across blocks so the whole card streams K/V at once,

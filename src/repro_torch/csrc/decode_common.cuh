@@ -7,8 +7,8 @@
 // row of each token, or -1 where the token is no valid key for the query.
 //
 // What bounds it on the card: bytes. Each K/V element read is used for
-// g multiply-adds per product (g = q heads per kv head, 4 on the serving
-// path), far below the ~295 flops a byte at which the H100 stops being
+// g multiply-adds per product (g = q heads per kv head: 4 for llava, 16
+// for glm4-9b), far below the ~295 flops a byte at which the H100 stops being
 // memory-bound, so the least time is the K/V bytes over 3.35 TB/s. The
 // card reaches that rate only with megabytes in flight at once (tens of
 // KB on every SM) and with the math of a tile hidden behind the loads of
@@ -28,7 +28,8 @@
 //   tokens are zero-filled without a load. Rows are padded by 16 bytes in
 //   shared memory, so the column reads below hit distinct banks.
 // * bf16: Q.K^T and P.V on the tensor cores with mma.sync, the q heads
-//   on M (padded to 16), 8 tokens a warp: S = Q K^T (m16n8k16, K rows by
+//   on M (padded to 16; G = 16 fills rows 8-15 as well, the instruction's
+//   natural width), 8 tokens a warp: S = Q K^T (m16n8k16, K rows by
 //   ldmatrix), each warp's own online softmax over the 4 lanes of a row,
 //   then O += P V (m16n8k8, P straight from S's registers, rounded to bf16
 //   as the TPU kernel rounds p, V by ldmatrix.trans). No block barrier
@@ -47,9 +48,15 @@
 // * f32 (no tensor-core path at this precision): CUDA cores, threads
 //   across tokens for Q.K^T (four threads a token, each a quarter of hd
 //   inside the thread against q in shared memory), one warp per q head for
-//   the softmax, rescaled once a tile, threads across hd for P.V.
-// * The group size is a template parameter G in {1, 2, 4, 8} (a g below G
-//   runs as G with the extra heads idle), so g = 4 carries 4-wide arrays.
+//   the softmax (two heads a warp at G = 16), rescaled once a tile,
+//   threads across hd for P.V, 4 elements a thread (one 16-byte chunk of
+//   f32, one 4-byte word of e4m3), so a thread holds G x 4 sums.
+// * The group size is a template parameter G in {1, 2, 4, 8, 16} (a g
+//   below G runs as G with the extra heads idle), so g = 4 carries 4-wide
+//   arrays. A group above 16 (the TPU kernel takes any) runs in parts of
+//   16 along the grid's y: block (split, kv head x part, row) takes q
+//   heads [16 part, 16 part + 16) of its kv head and reads its K/V once a
+//   part.
 // * Partials are sized to G and to the splits of the launch: a split with
 //   no valid key writes only m = -1e30 and l = 0, no accumulator. The last
 //   block of a (row, kv head) to finish, found with a counter that it
@@ -236,9 +243,12 @@ struct Chunk<__nv_bfloat16> {
 
 // Shared-memory layout of one block (dynamic), in this order: the K/V
 // ring, q (G x HD, f32, pre-scaled), the score sums of the hd parts
-// (DEC_PARTS x G x TILE), the probabilities (TILE x G), alpha (8), final m
-// and l (16), the row table of a segment (DEC_SEG ints) and the source's
-// own table (DEC_SEG + 2). The ring, once drained, holds the per-warp sums.
+// (DEC_PARTS x G x TILE), the probabilities (TILE x G), alpha (G), final m
+// and l (2G), the row table of a segment (DEC_SEG ints) and the source's
+// own table (DEC_SEG + 2). The ring, once drained, holds the per-warp sums
+// (DEC_WARPS x G x HD f32); where they outgrow it (e4m3 at G = 16, whose
+// ring holds half the bytes of bf16's), the first region is sized to them,
+// which leaves two blocks an SM all the same.
 // KT is the K/V storage type.
 template <typename KT, int HD, int G>
 struct DecLayout {
@@ -246,27 +256,31 @@ struct DecLayout {
   static constexpr int RS = C + 1;                     // padded row stride
   static constexpr int TILE_CH = DEC_TILE * RS;        // chunks a K/V tile
   static constexpr size_t RING = (size_t)DEC_STAGES * 2 * TILE_CH * 16;
+  static constexpr size_t RED = (size_t)4 * DEC_WARPS * G * HD;
+  static constexpr size_t STAGE = RING > RED ? RING : RED;
   static constexpr size_t BYTES =
-      RING + 4 * ((size_t)G * HD + DEC_PARTS * G * DEC_TILE + DEC_TILE * G +
-                  8 + 16 + 2 * DEC_SEG + 2);
-  static_assert(4 * DEC_WARPS * G * HD <= RING, "warp sums fit the ring");
+      STAGE + 4 * ((size_t)G * HD + DEC_PARTS * G * DEC_TILE + DEC_TILE * G +
+                   3 * G + 2 * DEC_SEG + 2);
 };
 
-// One block per (split, kv head, batch row); q and out in T, K/V stored
-// in KT (T, or e4m3). Partials, f32, one buffer: acc (rows, nsplit, G,
-// HD) then m and l (rows, nsplit, 2, G), rows = b * nkv; counters (rows,)
-// int32, 0 between launches.
+// One block per (split, kv head x part, batch row); q and out in T, K/V
+// stored in KT (T, or e4m3). Partials, f32, one buffer: acc (rows,
+// nsplit, G, HD) then m and l (rows, nsplit, 2, G), rows = b * nkv *
+// parts; counters (rows,) int32, 0 between launches.
 template <typename T, typename KT, int HD, int G, class KV>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
                     const KT* __restrict__ vc, KV kv, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
-                    int nq, int g, int split_len, int window, float qscale) {
+                    int nq, int g, int parts, int split_len, int window,
+                    float qscale) {
   using L = DecLayout<KT, HD, G>;
   constexpr int C = L::C, RS = L::RS, TILE_CH = L::TILE_CH;
   constexpr int EPC = Chunk<KT>::N;         // elements a chunk
-  constexpr int NTG = DEC_THREADS / C;      // token groups of P.V
-  // tokens a thread a tile, P.V (rows of two chunks leave threads idle)
+  constexpr int PV = 4;                     // elements a thread, P.V
+  constexpr int U = HD / PV;                // P.V units in a row
+  constexpr int NTG = DEC_THREADS / U;      // token groups of P.V
+  // tokens a thread a tile, P.V
   constexpr int TPT = NTG >= DEC_TILE ? 1 : DEC_TILE / NTG;
   constexpr int HD4 = HD / 4;
   constexpr int CP = C / DEC_PARTS;         // chunks a thread, Q.K^T
@@ -279,20 +293,32 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
   // bf16 runs Q.K^T and P.V on the tensor cores, 8 tokens a warp
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   static_assert(!kMma || DEC_TILE == 8 * DEC_WARPS, "8 tokens a warp");
+  static_assert(U <= 32 && NTG <= DEC_TILE && DEC_TILE % NTG == 0 &&
+                    (G <= 8 || G == 16),
+                "P.V units, group width");
+  // mma rows in use: heads 0-7 in rows r, heads 8-15 in rows r + 8
+  constexpr int MR = G > 8 ? 2 : 1;
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* ring = reinterpret_cast<uint4*>(smem);
-  float* s_q = reinterpret_cast<float*>(smem + L::RING);
+  float* s_q = reinterpret_cast<float*>(smem + L::STAGE);
   float* s_s = s_q + G * HD;               // [DEC_PARTS][G][TILE]
   float* s_p = s_s + DEC_PARTS * G * DEC_TILE;   // [TILE][G]
   float* s_alpha = s_p + DEC_TILE * G;     // [G]
-  float* s_ml = s_alpha + 8;               // m [G], l [G]
-  int* s_row = reinterpret_cast<int*>(s_ml + 16);
+  float* s_ml = s_alpha + G;               // m [G], l [G]
+  int* s_row = reinterpret_cast<int*>(s_ml + 2 * G);
   int* s_aux = s_row + DEC_SEG;
   __shared__ int s_lohi[2][DEC_WARPS];
   __shared__ int s_last;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+  const int split = blockIdx.x, bi = blockIdx.z;
+  // parts exist only at G = 16 (the wrapper sends g <= 8 to G <= 8), so
+  // the narrower instances keep one block row a kv head and all g heads
+  constexpr bool kParts = G == 16;
+  const int kvh = kParts ? blockIdx.y / parts : blockIdx.y;
+  const int hp = kParts ? blockIdx.y - kvh * parts : 0;
+  const int h0 = kvh * g + hp * G;          // this block's first q head
+  const int gp = kParts ? min(G, g - hp * G) : g;   // and its count
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t_begin = split * split_len;
   // tokens of this split; none past a paged slot's length (no load then)
@@ -304,46 +330,65 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
 
   // q: bf16 as mma A fragments (row = q head, padded to 16), f32 in s_q
   constexpr int KS = HD / 16;                // k-steps of Q.K^T (mma)
-  uint32_t qa[KS][2];
+  uint32_t qa[KS][2 * MR];                   // [ks][2 mr + k half]
   const int r = lane >> 2, cq = lane & 3;    // mma fragment row and column
   if (n_tok > 0) {
     if constexpr (kMma) {
-      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-          q + ((size_t)bi * nq + kvh * g + r) * HD);
       // k order of a 16-dim step: bf16 K the mma's own (2cq, 2cq + 8);
       // e4m3 K dims 4cq .. 4cq + 3, one 4-byte read of the row
       const int i0 = kF8 ? 2 * cq : cq, i1 = kF8 ? 2 * cq + 1 : cq + 4;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        qa[ks][0] = r < g ? qrow[ks * 8 + i0] : 0u;
-        qa[ks][1] = r < g ? qrow[ks * 8 + i1] : 0u;
+      for (int mr = 0; mr < MR; ++mr) {
+        const int row = r + 8 * mr;
+        const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+            q + ((size_t)bi * nq + h0 + row) * HD);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          qa[ks][2 * mr] = row < gp ? qrow[ks * 8 + i0] : 0u;
+          qa[ks][2 * mr + 1] = row < gp ? qrow[ks * 8 + i1] : 0u;
+        }
       }
     } else {
       for (int i = tid; i < G * HD; i += DEC_THREADS)
-        s_q[i] = i / HD < g ? Cvt<T>::to_f(
-                                  q[((size_t)bi * nq + kvh * g) * HD + i]) *
-                                  qscale
-                            : 0.f;
+        s_q[i] = i / HD < gp ? Cvt<T>::to_f(
+                                   q[((size_t)bi * nq + h0) * HD + i]) *
+                                   qscale
+                             : 0.f;
     }
   }
+  // the A fragment of k-step ks: rows r (heads 0-7) and, at G = 16, r + 8
+  auto afrag = [&](int ks, uint32_t* a) {
+    a[0] = qa[ks][0];
+    a[2] = qa[ks][1];
+    if constexpr (MR > 1) {
+      a[1] = qa[ks][2];
+      a[3] = qa[ks][3];
+    } else {
+      a[1] = a[3] = 0u;
+    }
+  };
 
   // running softmax: mma path, per warp and q head row r (its 8 tokens
   // of every tile); CUDA-core path, per q head in the warp that owns it
   constexpr int GW = (G + DEC_WARPS - 1) / DEC_WARPS;
+  static_assert(GW >= MR, "a running (m, l) per mma row");
   float m_run[GW], l_run[GW];
 #pragma unroll
   for (int k = 0; k < GW; ++k) {
     m_run[k] = NEG_INF;
     l_run[k] = 0.f;
   }
-  float acc[G][EPC];                       // CUDA-core P.V
-  float oacc[HD / 8][2];                   // mma P.V: row r, 2 columns a tile
+  float acc[G][PV];                        // CUDA-core P.V
+  // mma P.V: rows r (and r + 8), 2 columns an n-block: [n][2 mr + e]
+  float oacc[HD / 8][2 * MR];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < PV; ++e) acc[gi][e] = 0.f;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) oacc[n][0] = oacc[n][1] = 0.f;
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2 * MR; ++e) oacc[n][e] = 0.f;
 
   // the split in segments of DEC_SEG tokens (one for the serving shapes)
   bool any = false;
@@ -417,7 +462,8 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
             const uint32_t w = krow[4 * ks + cq];
             const uint32_t kb[2] = {f8x2_to_bf16x2(w),
                                     f8x2_to_bf16x2(w >> 16)};
-            const uint32_t a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+            uint32_t a[4];
+            afrag(ks, a);
             mma_16816(s, a, kb);
           }
         } else {
@@ -425,31 +471,50 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
           for (int ks = 0; ks < KS; ks += 2) {
             uint32_t kb[4];
             ldsm_x4(kb, kt + (tw + (lane & 7)) * RS + 2 * ks + (lane >> 3));
-            const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
-            mma_16816(s, a0, kb);
+            uint32_t a[4];
+            afrag(ks, a);
+            mma_16816(s, a, kb);
             if (ks + 1 < KS) {
-              const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
-              mma_16816(s, a1, kb + 2);
+              afrag(ks + 1, a);
+              mma_16816(s, a, kb + 2);
             }
           }
         }
         const bool ok0 = rows[tw + 2 * cq] >= 0;
         const bool ok1 = rows[tw + 2 * cq + 1] >= 0;
-        const float s0 = ok0 ? s[0] * qscale : NEG_INF;
-        const float s1 = ok1 ? s[1] * qscale : NEG_INF;
-        float mt = fmaxf(s0, s1);
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float mn = fmaxf(m_run[0], mt);
-        const float alpha = exp2f(m_run[0] - mn);
-        const float p0 = ok0 ? exp2f(s0 - mn) : 0.f;
-        const float p1 = ok1 ? exp2f(s1 - mn) : 0.f;
-        float ps = p0 + p1;
-        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-        l_run[0] = l_run[0] * alpha + ps;
-        m_run[0] = mn;
-        const uint32_t pa = pack_bf16(p0, p1);
+        // the online softmax of rows r and (G = 16) r + 8: S's registers
+        // 2 mr and 2 mr + 1
+        float alpha[MR];
+        uint32_t pa[MR];
+#pragma unroll
+        for (int mr = 0; mr < MR; ++mr) {
+          const float s0 = ok0 ? s[2 * mr] * qscale : NEG_INF;
+          const float s1 = ok1 ? s[2 * mr + 1] * qscale : NEG_INF;
+          float mt = fmaxf(s0, s1);
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+          const float mn = fmaxf(m_run[mr], mt);
+          alpha[mr] = exp2f(m_run[mr] - mn);
+          const float p0 = ok0 ? exp2f(s0 - mn) : 0.f;
+          const float p1 = ok1 ? exp2f(s1 - mn) : 0.f;
+          float ps = p0 + p1;
+          ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+          ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+          l_run[mr] = l_run[mr] * alpha[mr] + ps;
+          m_run[mr] = mn;
+          pa[mr] = pack_bf16(p0, p1);
+        }
+        // O (rows r, r + 8) = alpha O + P V, one n-block of 8 columns
+        auto pv = [&](float* d, uint32_t vb) {
+          float c[4] = {d[0] * alpha[0], d[1] * alpha[0], 0.f, 0.f};
+          if constexpr (MR > 1) {
+            c[2] = d[2] * alpha[MR - 1];
+            c[3] = d[3] * alpha[MR - 1];
+          }
+          mma_1688(c, pa[0], MR > 1 ? pa[MR - 1] : 0u, vb);
+#pragma unroll
+          for (int e = 0; e < 2 * MR; ++e) d[e] = c[e];
+        };
         if constexpr (kF8) {
           // V rows of tokens tw + 2cq and tw + 2cq + 1: lane r reads bytes
           // 4r .. 4r + 3 of each 32-dim group m of both, so n-block 4m + j
@@ -461,14 +526,9 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
           for (int m = 0; m < HD / 32; ++m) {
             const uint32_t w0 = v0[8 * m + r], w1 = v1[8 * m + r];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float* d = oacc[4 * m + j];
-              float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
-              mma_1688(c, pa, 0u,
-                       f8x2_to_bf16x2(__byte_perm(w0, w1, j | (4 + j) << 4)));
-              d[0] = c[0];
-              d[1] = c[1];
-            }
+            for (int j = 0; j < 4; ++j)
+              pv(oacc[4 * m + j],
+                 f8x2_to_bf16x2(__byte_perm(w0, w1, j | (4 + j) << 4)));
           }
         } else {
 #pragma unroll
@@ -477,13 +537,7 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
             ldsm_x4_trans(vb,
                           vt + (tw + (lane & 7)) * RS + 4 * n4 + (lane >> 3));
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float* d = oacc[4 * n4 + j];
-              float c[4] = {d[0] * alpha, d[1] * alpha, 0.f, 0.f};
-              mma_1688(c, pa, 0u, vb[j]);
-              d[0] = c[0];
-              d[1] = c[1];
-            }
+            for (int j = 0; j < 4; ++j) pv(oacc[4 * n4 + j], vb[j]);
           }
         }
       } else {
@@ -549,26 +603,30 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
         }
         __syncthreads();
 
-        {   // P.V: chunk tid % C of hd, tokens tid / C + i * NTG
-          const int c = tid % C, tg = tid / C;
+        {   // P.V: dims 4u .. 4u + 3 (u = tid % U; one chunk of f32, one
+            // word of e4m3), tokens tid / U + i * NTG
+          const int u = tid % U, tg = tid / U;
 #pragma unroll
           for (int gi = 0; gi < G; ++gi) {
             const float a = s_alpha[gi];
 #pragma unroll
-            for (int e = 0; e < EPC; ++e) acc[gi][e] *= a;
+            for (int e = 0; e < PV; ++e) acc[gi][e] *= a;
           }
 #pragma unroll
           for (int i = 0; i < TPT; ++i) {
             const int t = tg + i * NTG;
-            if (NTG > DEC_TILE && t >= DEC_TILE) break;
-            float vf[EPC], p[G];
-            Chunk<KT>::unpack(vt[t * RS + c], vf);
+            float vf[PV], p[G];
+            if constexpr (kF8)
+              f8x4_to_f32(reinterpret_cast<const uint32_t*>(vt + t * RS)[u],
+                          vf);
+            else
+              Chunk<KT>::unpack(vt[t * RS + u], vf);
 #pragma unroll
             for (int gi = 0; gi < G; ++gi) p[gi] = s_p[t * G + gi];
 #pragma unroll
             for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-              for (int e = 0; e < EPC; ++e)
+              for (int e = 0; e < PV; ++e)
                 acc[gi][e] = fmaf(p[gi], vf[e], acc[gi][e]);
           }
         }
@@ -587,17 +645,24 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
     if constexpr (kMma) {
       // each warp ran its own softmax: rescale to the block's max first
       float* s_wm = s_s;                    // [WARPS][G] m, then l
-      if (cq == 0 && r < G) {
-        s_wm[warp * G + r] = m_run[0];
-        s_wm[(DEC_WARPS + warp) * G + r] = l_run[0];
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr) {
+        const int row = r + 8 * mr;
+        if (cq == 0 && row < G) {
+          s_wm[warp * G + row] = m_run[mr];
+          s_wm[(DEC_WARPS + warp) * G + row] = l_run[mr];
+        }
       }
       __syncthreads();
-      if (r < G) {
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr) {
+        const int row = r + 8 * mr;
+        if (row >= G) continue;
         float M = NEG_INF;
 #pragma unroll
-        for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_wm[w * G + r]);
-        const float sc = exp2f(m_run[0] - M);
-        float* dst = reinterpret_cast<float*>(red) + (warp * G + r) * HD;
+        for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, s_wm[w * G + row]);
+        const float sc = exp2f(m_run[mr] - M);
+        float* dst = reinterpret_cast<float*>(red) + (warp * G + row) * HD;
         if constexpr (kF8) {      // column n of n-block 4m + j: 32m + 4n + j
 #pragma unroll
           for (int m = 0; m < HD / 32; ++m)
@@ -605,12 +670,13 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
             for (int j = 0; j < 4; ++j)
 #pragma unroll
               for (int e = 0; e < 2; ++e)
-                dst[32 * m + 4 * (2 * cq + e) + j] = oacc[4 * m + j][e] * sc;
+                dst[32 * m + 4 * (2 * cq + e) + j] =
+                    oacc[4 * m + j][2 * mr + e] * sc;
         } else {
 #pragma unroll
           for (int n = 0; n < HD / 8; ++n) {
-            dst[8 * n + 2 * cq] = oacc[n][0] * sc;
-            dst[8 * n + 2 * cq + 1] = oacc[n][1] * sc;
+            dst[8 * n + 2 * cq] = oacc[n][2 * mr] * sc;
+            dst[8 * n + 2 * cq + 1] = oacc[n][2 * mr + 1] * sc;
           }
         }
       }
@@ -636,18 +702,18 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
         }
       }
 #pragma unroll
-      for (int o = C; o < 32; o <<= 1)
+      for (int o = U; o < 32; o <<= 1)
 #pragma unroll
         for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e)
+          for (int e = 0; e < PV; ++e)
             acc[gi][e] += __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
-      if (lane < C) {
-        float* dst = reinterpret_cast<float*>(red) + warp * G * HD + lane * EPC;
+      if (lane < U) {
+        float* dst = reinterpret_cast<float*>(red) + warp * G * HD + lane * PV;
 #pragma unroll
         for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) dst[gi * HD + e] = acc[gi][e];
+          for (int e = 0; e < PV; ++e) dst[gi * HD + e] = acc[gi][e];
       }
     }
   } else if (tid < G) {
@@ -659,13 +725,13 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
   // the block's accumulator: the sum of its warps' (one split only: the
   // output); else its partial, and the last block of the (row, kv head)
   // to arrive merges every split's
-  const int nsplit = gridDim.x, rowkv = bi * gridDim.y + kvh;
+  const int nsplit = gridDim.x, rowkv = bi * gridDim.y + blockIdx.y;
   const size_t rec = (size_t)rowkv * nsplit + split;
   float4* acc_part = reinterpret_cast<float4*>(part);
   float* ml_part = part + (size_t)gridDim.z * gridDim.y * nsplit * G * HD;
   auto store = [&](int i, float4 a, float l) {   // i: (q head, 4 of hd)
     const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* p = out + ((size_t)bi * nq + kvh * g) * HD + 4 * i;
+    T* p = out + ((size_t)bi * nq + h0) * HD + 4 * i;
     p[0] = Cvt<T>::from_f(a.x * inv);
     p[1] = Cvt<T>::from_f(a.y * inv);
     p[2] = Cvt<T>::from_f(a.z * inv);
@@ -684,7 +750,7 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
       }
     }
     if (nsplit == 1) {
-      if (i < g * HD4) store(i, a, s_ml[G + i / HD4]);
+      if (i < gp * HD4) store(i, a, s_ml[G + i / HD4]);
     } else if (any) {             // a split with no valid key writes no acc
       acc_part[rec * G * HD4 + i] = a;
     }
@@ -710,7 +776,7 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
   constexpr int MB = 8;
   const float4* ap = acc_part + (size_t)rowkv * nsplit * G * HD4;
   const float* mp = ml_part + (size_t)rowkv * nsplit * 2 * G;
-  for (int i = tid; i < g * HD4; i += DEC_THREADS) {
+  for (int i = tid; i < gp * HD4; i += DEC_THREADS) {
     const int gi = i / HD4;
     float M = NEG_INF, Lsum = 0.f;
     float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -745,43 +811,48 @@ decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
 template <typename T, typename KT, int HD, int G, class KV>
 int decode_launch(const void* q, const void* k, const void* v, const KV& kv,
                   void* out, void* part, void* counters, int b, int nq,
-                  int nkv, int nsplit, int split_len, int window,
+                  int nkv, int parts, int nsplit, int split_len, int window,
                   float scale, cudaStream_t st) {
   auto kern = decode_split_kernel<T, KT, HD, G, KV>;
   const size_t smem = DecLayout<KT, HD, G>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(nsplit, nkv, b), DEC_THREADS, smem, st>>>(
+  kern<<<dim3(nsplit, nkv * parts, b), DEC_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), kv, static_cast<T*>(out),
       static_cast<float*>(part), static_cast<int*>(counters), nq, nq / nkv,
-      split_len, window, scale * DEC_LOG2E);
+      parts, split_len, window, scale * DEC_LOG2E);
   return (int)cudaGetLastError();
 }
 
-// g = nq / nkv runs on the smallest G in {1, 2, 4, 8} that holds it; K/V
-// in q's dtype or in e4m3 (kv_dtype DTYPE_FP8).
+// g = nq / nkv runs on the smallest G in {1, 2, 4, 8, 16} that holds it,
+// a g above 16 in ceil(g / 16) parts of 16; K/V in q's dtype or in e4m3
+// (kv_dtype DTYPE_FP8).
 template <class KV>
 int decode_dispatch(int dtype, int kv_dtype, int hd, const void* q,
                     const void* k, const void* v, const KV& kv, void* out,
                     void* part, void* counters, int b, int nq, int nkv,
                     int nsplit, int split_len, int window, float scale,
                     cudaStream_t st) {
-  if (nsplit < 1 || split_len % DEC_TILE) return (int)cudaErrorInvalidValue;
+  if (nsplit < 1 || split_len % DEC_TILE || nkv < 1 || nq % nkv)
+    return (int)cudaErrorInvalidValue;
   const int g = nq / nkv;
-  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 0;
+  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 16;
+  const int parts = (g + G - 1) / G;
 #define REPRO_DECODE_CASE(TT, KK, HH, GG)                                   \
   if (G == GG)                                                              \
     return decode_launch<TT, KK, HH, GG, KV>(q, k, v, kv, out, part,        \
-                                             counters, b, nq, nkv, nsplit,  \
-                                             split_len, window, scale, st)
+                                             counters, b, nq, nkv, parts,   \
+                                             nsplit, split_len, window,     \
+                                             scale, st)
 #define REPRO_DECODE_HD(TT, KK, HH)                                         \
   case HH: {                                                                \
     REPRO_DECODE_CASE(TT, KK, HH, 1);                                       \
     REPRO_DECODE_CASE(TT, KK, HH, 2);                                       \
     REPRO_DECODE_CASE(TT, KK, HH, 4);                                       \
     REPRO_DECODE_CASE(TT, KK, HH, 8);                                       \
+    REPRO_DECODE_CASE(TT, KK, HH, 16);                                      \
     break;                                                                  \
   }
 #define REPRO_DECODE_TYPES(TT, KK)                                          \

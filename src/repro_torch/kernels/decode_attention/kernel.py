@@ -20,10 +20,12 @@ DEVICE_KERNELS = 1    # device kernels one launch issues
 # template over this source of K/V rows)
 SYMBOLS = (("19decode_split_kernelI", "7DenseKV"),)
 MAX_SPLITS = 16       # splits a row, which the last block to finish merges
-GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernel is built for
+# q heads per kv head the kernel is built for; a larger group runs in parts
+# of the widest, one block row of the grid a part
+GROUPS = (1, 2, 4, 8, 16)
 MAX_GROUP = GROUPS[-1]
 
-COUNTERS = 1 << 16     # merge counters a stream holds: b * nkv of a launch
+COUNTERS = 1 << 16     # merge counters a stream holds: b * nkv * parts
 
 # per (device, stream): int32 counters the last block of each (row, kv
 # head) uses to find itself; they start at 0 and the kernel resets them,
@@ -36,8 +38,15 @@ _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 def group_width(g: int) -> int:
     """The kernel's group width for g q heads per kv head: the smallest
-    of GROUPS that holds g (the extra heads idle)."""
-    return next(w for w in GROUPS if w >= g)
+    of GROUPS that holds g (the extra heads idle), else MAX_GROUP."""
+    return next((w for w in GROUPS if w >= g), MAX_GROUP)
+
+
+def group_parts(g: int) -> int:
+    """Parts of MAX_GROUP q heads that a group of g runs in: one for
+    g <= MAX_GROUP. Each part is a block of its own and reads the kv
+    head's K/V once."""
+    return -(-g // MAX_GROUP)
 
 
 def split_plan(b: int, nkv: int, n_tokens: int, n_sm: int) -> Tuple[int, int]:
@@ -54,11 +63,12 @@ def split_plan(b: int, nkv: int, n_tokens: int, n_sm: int) -> Tuple[int, int]:
 
 
 def partial_floats(b: int, nkv: int, g: int, hd: int, nsplit: int) -> int:
-    """f32 scratch of the split partials: acc (b, nkv, nsplit, G, hd) and
-    m, l (b, nkv, nsplit, 2, G), G = group_width(g); none for one split."""
+    """f32 scratch of the split partials: acc (b, nkv * parts, nsplit, G,
+    hd) and m, l (b, nkv * parts, nsplit, 2, G), G = group_width(g),
+    parts = group_parts(g); none for one split."""
     if nsplit == 1:
         return 0
-    return b * nkv * nsplit * group_width(g) * (hd + 2)
+    return b * nkv * group_parts(g) * nsplit * group_width(g) * (hd + 2)
 
 
 def launch_scratch(b: int, nkv: int, g: int, hd: int, n_tokens: int,
@@ -66,16 +76,18 @@ def launch_scratch(b: int, nkv: int, g: int, hd: int, n_tokens: int,
     """(split_len, nsplit, partials, counters) of one launch on
     ``device``: the partials are one ``torch.empty`` (inside a CUDA graph
     capture it comes from the graph's pool), the counters are kept per
-    stream; None, None for a launch of one split."""
+    stream; None, None for a launch of one split. A group in parts
+    counts as that many kv heads."""
+    rows = nkv * group_parts(g)
     split_len, nsplit = split_plan(
-        b, nkv, n_tokens,
+        b, rows, n_tokens,
         torch.cuda.get_device_properties(device).multi_processor_count)
     n = partial_floats(b, nkv, g, hd, nsplit)
     if not n:
         return split_len, nsplit, None, None
-    B.require(b * nkv <= COUNTERS,
-              f"decode attention: {b} rows x {nkv} kv heads exceed the "
-              f"{COUNTERS} merge counters of a stream")
+    B.require(b * rows <= COUNTERS,
+              f"decode attention: {b} rows x {rows} kv heads (x parts) "
+              f"exceed the {COUNTERS} merge counters of a stream")
     part = torch.empty(n, dtype=torch.float32, device=device)
     return split_len, nsplit, part, merge_counters(device)
 
@@ -102,9 +114,9 @@ def ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def check_group(name: str, nq: int, nkv: int) -> None:
-    B.require(nkv > 0 and nq % nkv == 0 and nq // nkv <= MAX_GROUP,
-              f"{name}: {nq} q heads over {nkv} kv heads (at most "
-              f"{MAX_GROUP} q heads per kv head)")
+    B.require(nkv > 0 and nq % nkv == 0,
+              f"{name}: {nq} q heads over {nkv} kv heads (the q heads must "
+              f"be a whole multiple of the kv heads)")
 
 
 def decode_attention(q, k, v, q_pos, kv_pos, *,

@@ -6,7 +6,8 @@ Imports neither ``jax`` nor ``repro``, so it runs where the port runs:
 
 Each test skips without a CUDA device (the kernels have no CPU mode).
 Small shapes with the cases of ``tests/test_torch_kernels.py``: padded
-queries, ragged caches, windows, GQA groups 1-8, head dims 32-128; for
+queries, ragged caches, windows, GQA groups 1-32 (16 is glm4-9b's, 32
+runs in two parts of 16), head dims 32-128; for
 flash also lengths that are no multiple of its 128-row tiles, a gathered
 prefix whose -1 gap covers whole key tiles, a query tile that is all
 padding, a window inside one tile and cross-attention with S < s; for
@@ -316,7 +317,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 # -- the split-K decode pair: 64-token tiles, splits merged by the last
-# block of a (row, kv head) to finish, group widths 1/2/4/8
+# block of a (row, kv head) to finish, group widths 1/2/4/8/16 (a larger
+# group in parts of 16)
 
 def _ring_pos(S, cur):
     """kv_pos of a ring buffer of S slots after writing positions 0..cur
@@ -366,6 +368,13 @@ def _check_dense(dev, dtype, S, nq, nkv, hd, kv_rows, q_pos, window=None,
     # wrapped ring buffers: live slots rotated against slot order
     dict(S=300, nq=8, nkv=2, hd=128, cur=[1000, 299, 450]),
     dict(S=600, nq=4, nkv=1, hd=32, cur=[1500, 2000], window=200),
+    # glm4-9b's group of 16 (32/2 heads of 128), ragged, windowed, wrapped
+    dict(S=700, nq=32, nkv=2, hd=128, lens=[700, 333, 65]),
+    dict(S=1024, nq=32, nkv=2, hd=128, lens=[1024, 700], window=100),
+    dict(S=300, nq=32, nkv=2, hd=64, cur=[1000, 299, 450]),
+    # MQA, a group of 32 in two parts of 16
+    dict(S=2500, nq=32, nkv=1, hd=128, lens=[2500, 2431]),
+    dict(S=1024, nq=32, nkv=1, hd=64, lens=[1024, 700], window=100),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_split_edges(dev, case, dtype):
@@ -379,7 +388,7 @@ def test_decode_kernel_split_edges(dev, case, dtype):
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_group_widths(dev, dtype, g, hd):
     S, nkv = 600, 2
@@ -401,13 +410,15 @@ def test_decode_kernel_splits_longer_than_a_row_table(dev, dtype, window):
     _check_dense(dev, dtype, S, 32, 16, 64, rows, qp, window)
 
 
+@pytest.mark.parametrize("heads", [(8, 2), (32, 2), (32, 1)])
 @pytest.mark.parametrize("S", [100, 600])          # one split, several
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_kernel_row_without_keys_is_zero(dev, dtype, S):
+def test_decode_kernel_row_without_keys_is_zero(dev, dtype, S, heads):
     """The TPU kernel's l == 0 -> 1 gives 0 (the plain version does not:
-    its softmax over all-masked scores is uniform)."""
+    its softmax over all-masked scores is uniform); also at groups of 16
+    and 32 (two parts)."""
     rows = _prefix_rows(S, [0, S - 7, S])
-    args = _dense_inputs(dev, dtype, S, 8, 2, 64, rows, [5, S - 8, -1])
+    args = _dense_inputs(dev, dtype, S, *heads, 64, rows, [5, S - 8, -1])
     out = decode_attention(*args)
     assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
     torch.testing.assert_close(out[1], decode_attention_ref(*args)[1],
@@ -457,6 +468,13 @@ def _check_paged(dev, dtype, page, max_pages, nq, nkv, hd, lens,
          window=150),
     dict(page=8, max_pages=100, nq=8, nkv=4, hd=32, lens=[800, 555],
          window=70),
+    # glm4-9b's group of 16; MQA's 32 in two parts, windowed
+    dict(page=16, max_pages=40, nq=32, nkv=2, hd=128, lens=[640, 256, 333]),
+    dict(page=16, max_pages=64, nq=32, nkv=2, hd=64, lens=[1000, 17],
+         window=150),
+    dict(page=16, max_pages=160, nq=32, nkv=1, hd=128, lens=[2555, 1]),
+    dict(page=24, max_pages=50, nq=32, nkv=1, hd=64, lens=[1200, 999],
+         window=150),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_kernel_split_edges(dev, case, dtype):
@@ -465,7 +483,7 @@ def test_paged_kernel_split_edges(dev, case, dtype):
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_kernel_group_widths(dev, dtype, g, hd):
     _check_paged(dev, dtype, 16, 40, g * 2, 2, hd, [640, 300])
@@ -480,11 +498,13 @@ def test_paged_kernel_splits_longer_than_a_row_table(dev, dtype, window):
                  [3504, 3001, 2300, 1100, 1025, 1024, 64, 1], window)
 
 
+@pytest.mark.parametrize("heads", [(8, 2), (32, 2), (32, 1)])
 @pytest.mark.parametrize("max_pages", [4, 40])     # one split, several
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_kernel_slot_without_keys_is_zero(dev, dtype, max_pages):
+def test_paged_kernel_slot_without_keys_is_zero(dev, dtype, max_pages,
+                                                heads):
     lens = [0, max_pages * 16 - 3, 0]
-    args = _paged_inputs(dev, dtype, 16, max_pages, 8, 2, 64, lens)
+    args = _paged_inputs(dev, dtype, 16, max_pages, *heads, 64, lens)
     out = paged_decode_attention(*args)
     assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
     torch.testing.assert_close(out[1], paged_decode_attention_ref(*args)[1],
@@ -513,8 +533,8 @@ def test_decode_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert kb.is_contiguous()
     with pytest.raises(ValueError, match="16-byte aligned"):
         decode_attention(q, kb, v, qp, kp)
-    with pytest.raises(ValueError, match="at most 8"):
-        decode_attention(torch.zeros((1, 18, 64), dtype=q.dtype, device=dev),
+    with pytest.raises(ValueError, match="whole multiple"):
+        decode_attention(torch.zeros((1, 5, 64), dtype=q.dtype, device=dev),
                          k, v, qp, kp)
     args = _paged_inputs(dev, torch.bfloat16, 16, 4, 4, 2, 64, [50])
     pool = args[1]
@@ -539,6 +559,9 @@ DENSE_CASES = [
     dict(S=1024, nq=4, nkv=2, hd=64, lens=[1024, 700], window=100),
     dict(S=300, nq=8, nkv=2, hd=128, cur=[1000, 299, 450]),
     dict(S=600, nq=4, nkv=1, hd=32, cur=[1500, 2000], window=200),
+    dict(S=700, nq=32, nkv=2, hd=128, lens=[700, 333, 65]),     # g = 16
+    dict(S=1024, nq=32, nkv=2, hd=64, lens=[1024, 700], window=100),
+    dict(S=2500, nq=32, nkv=1, hd=128, lens=[2500, 2431]),      # g = 32
 ]
 
 
@@ -555,7 +578,7 @@ def test_decode_kernel_fp8_matches_plain(dev, case, dtype):
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_fp8_group_widths(dev, dtype, g, hd):
     S, nkv = 600, 2
@@ -574,11 +597,12 @@ def test_decode_kernel_fp8_splits_longer_than_a_row_table(dev, dtype,
     _check_dense(dev, dtype, S, 32, 16, 64, rows, qp, window, kv_dtype=F8)
 
 
+@pytest.mark.parametrize("heads", [(8, 2), (32, 2), (32, 1)])
 @pytest.mark.parametrize("S", [100, 600])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_kernel_fp8_row_without_keys_is_zero(dev, dtype, S):
+def test_decode_kernel_fp8_row_without_keys_is_zero(dev, dtype, S, heads):
     rows = _prefix_rows(S, [0, S - 7, S])
-    args = _dense_inputs(dev, dtype, S, 8, 2, 64, rows, [5, S - 8, -1],
+    args = _dense_inputs(dev, dtype, S, *heads, 64, rows, [5, S - 8, -1],
                          kv_dtype=F8)
     out = decode_attention(*args)
     assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
@@ -597,6 +621,10 @@ PAGED_CASES = [
          window=150),
     dict(page=8, max_pages=100, nq=8, nkv=4, hd=32, lens=[800, 555],
          window=70),
+    dict(page=16, max_pages=40, nq=32, nkv=2, hd=128, lens=[640, 256, 333]),
+    dict(page=16, max_pages=64, nq=32, nkv=2, hd=64, lens=[1000, 17],
+         window=150),
+    dict(page=16, max_pages=160, nq=32, nkv=1, hd=128, lens=[2555, 1]),
 ]
 
 
@@ -609,7 +637,7 @@ def test_paged_kernel_fp8_matches_plain(dev, case, dtype):
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_kernel_fp8_group_widths(dev, dtype, g, hd):
     _check_paged(dev, dtype, 16, 40, g * 2, 2, hd, [640, 300], kv_dtype=F8)
@@ -624,11 +652,13 @@ def test_paged_kernel_fp8_splits_longer_than_a_row_table(dev, dtype,
                  kv_dtype=F8)
 
 
+@pytest.mark.parametrize("heads", [(8, 2), (32, 2), (32, 1)])
 @pytest.mark.parametrize("max_pages", [4, 40])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_kernel_fp8_slot_without_keys_is_zero(dev, dtype, max_pages):
+def test_paged_kernel_fp8_slot_without_keys_is_zero(dev, dtype, max_pages,
+                                                    heads):
     lens = [0, max_pages * 16 - 3, 0]
-    args = _paged_inputs(dev, dtype, 16, max_pages, 8, 2, 64, lens,
+    args = _paged_inputs(dev, dtype, 16, max_pages, *heads, 64, lens,
                          kv_dtype=F8)
     out = paged_decode_attention(*args)
     assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
@@ -694,18 +724,22 @@ def test_wrappers_refuse_mixed_kv_pairings(dev):
 
 def _graph_engine(dev, kind, dtype, kv_dtype=None):
     """A small engine of two slots on the card: reduced llava (dense, or
-    paged on pages of 16 with preemption) or mamba2 with the kernel's
-    state dim 64."""
+    paged on pages of 16 with preemption), mamba2 with the kernel's state
+    dim 64, or reduced glm4-9b at its true heads (32/2 of 128, a group of
+    16; "glm4" dense, "glm4 paged")."""
     if kind == "mamba2":
         cfg = get_config("mamba2-370m").reduced()
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
                                                                state_dim=64))
+    elif kind.startswith("glm4"):
+        cfg = dataclasses.replace(get_config("glm4-9b").reduced(),
+                                  n_heads=32, n_kv_heads=2, head_dim=128)
     else:
         cfg = get_config("llava-next-mistral-7b").reduced()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev, dtype=dtype)
     opts = (dict(paged=True, page_size=16, preemption=True)
-            if kind == "paged" else {})
+            if kind.endswith("paged") else {})
     return Engine(cfg, params, max_batch=2, max_len=64, device=dev,
                   kv_dtype=kv_dtype, **opts)
 
@@ -764,20 +798,29 @@ def replay_checks():
     ("dense", {"decode", "dense_prefill"}),
     ("paged", {"decode"}),
     ("mamba2", {"decode", "dense_prefill"}),
+    # glm4-9b's group of 16 in the decode graph
+    ("glm4", {"decode", "dense_prefill"}),
+    ("glm4 paged", {"decode"}),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_graph_replay_equals_eager_bitwise(dev, replay_checks, kind, steps,
                                           dtype):
-    """Each captured step (dense, paged and mamba2 decode; llava dense
-    prefill with an image and without; mamba2 prefill) replays to what
+    """Each captured step (dense, paged and mamba2 decode, glm4-9b's
+    dense and paged decode at its group of 16; llava dense prefill with
+    an image and without; mamba2 and glm4 prefill) replays to what
     the eager step computes, bitwise, across page boundaries, a released
     and re-inserted slot and, on the paged engine, a swap-out and in."""
     eng = _graph_engine(dev, kind, dtype)
+    paged = kind.endswith("paged")
     _serve(eng, _requests(eng, image=kind == "dense"),
-           preempt_at=3 if kind == "paged" else None)
+           preempt_at=3 if paged else None)
     assert set(replay_checks) == steps and min(replay_checks.values()) >= 1
     assert replay_checks["decode"] >= 15
-    if kind == "paged":
+    if kind.startswith("glm4"):     # the group of 16 inside the graph
+        wrapper = "paged_decode_attention" if paged else "decode_attention"
+        assert eng.graph_census()["decode"][f"{wrapper} nodes"] == \
+            eng.cfg.n_layers
+    if paged:
         assert eng.preempt_count == 1 and eng.resume_count == 1
         eng.assert_no_page_leaks()
 

@@ -403,16 +403,21 @@ def test_ssd_plan_covers_the_sequence(bsz, S, H, P, N, dtype, plan):
         pl.state_floats)
 
 
-@pytest.mark.parametrize("g, width", [(1, 1), (2, 2), (3, 4), (4, 4),
-                                      (5, 8), (8, 8)])
-def test_decode_group_width_and_partials(g, width):
-    """A group runs on the smallest width of 1/2/4/8 that holds it, and
-    the partials are sized to that width and to the launch's splits:
-    acc (b, nkv, nsplit, G, hd) plus m and l; none for a single split."""
+@pytest.mark.parametrize("g, width, parts", [
+    (1, 1, 1), (2, 2, 1), (3, 4, 1), (4, 4, 1), (5, 8, 1), (8, 8, 1),
+    (7, 8, 1), (9, 16, 1), (16, 16, 1), (24, 16, 2), (32, 16, 2),
+    (33, 16, 3)])
+def test_decode_group_width_and_partials(g, width, parts):
+    """A group runs on the smallest width of 1/2/4/8/16 that holds it, a
+    larger one in parts of 16, and the partials are sized to that width,
+    the parts and the launch's splits: acc (b, nkv * parts, nsplit, G,
+    hd) plus m and l; none for a single split."""
     assert DK.group_width(g) == width
+    assert DK.group_parts(g) == parts
     b, nkv, hd, nsplit = 4, 8, 128, 8
+    rows = b * nkv * parts * nsplit
     assert DK.partial_floats(b, nkv, g, hd, nsplit) == (
-        b * nkv * nsplit * width * hd + b * nkv * nsplit * 2 * width)
+        rows * width * hd + rows * 2 * width)
     assert DK.partial_floats(b, nkv, g, hd, 1) == 0
 
 

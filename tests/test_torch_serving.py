@@ -271,7 +271,8 @@ def test_port_imports_without_jax_or_reference():
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "assert {'repro_torch.training.optimizer', 'repro_torch.training.data',\n"
         "        'repro_torch.training.train', 'repro_torch.training.checkpoint',\n"
-        "        'repro_torch.launch.train'} <= set(names), names\n"
+        "        'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.analytic'} <= set(names), names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

@@ -76,6 +76,18 @@ Phases (every failure raises and ends the run with a non-zero code):
      through 4 slots, so the steps cross page boundaries and a released
      slot takes a new request (the paged engine also swaps one out and
      in); the fp8 cases' launches are counted;
+  3s. the dry-run's case builders (``launch/specs.build_case``) on real
+     bf16 tensors under the 1x1 local mesh's rules, each output bitwise
+     equal to the entry point called without rules: glm4-9b at full
+     width, 2 layers (prefill 2 x 2048, then decode over its caches at
+     the group of 16), smollm-135m at full size (the train case, 4 x
+     2048), mixtral-8x7b at full width, 2 layers (prefill 1 x 4608 under
+     expert_parallel rules) and mamba2-370m (prefill 1 x 2048); seconds
+     and launches of each case;
+  3d. the dry-run on the meta device (``launch/dryrun.run_case``), one
+     case of each family on the 16x16 mesh: per-device argument GiB, the
+     analytic compute and memory terms at H100 SXM constants, the
+     bottleneck, seconds a case;
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -220,6 +232,12 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # 7t: 8192 tokens a step
 TRAIN_CHUNK = 512                    # 7t: loss_chunk of the lm head
 TRAIN_STEPS = 20
 PARITY_TRAIN = (2, 512)              # 7: batch, seq of the CPU-vs-GPU step
+# phase 3d: one case of each family on the 16x16 mesh, on the meta device:
+# dense, MoE (expert_parallel rules, mesh None), SSM, encoder-decoder
+DRYRUN_CASES = (("glm4-9b", "decode_32k", ()),
+                ("mixtral-8x7b", "prefill_32k", (("expert_parallel", True),)),
+                ("mamba2-370m", "long_500k", ()),
+                ("whisper-base", "train_4k", ()))
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -1682,6 +1700,200 @@ def config_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 3s, 3d: the dry-run's case builders on the card, and on meta
+# ---------------------------------------------------------------------------
+
+def _same(torch, what, got, want) -> None:
+    """Every tensor of two trees of the same structure bitwise equal."""
+    from repro_torch.models.params import flatten
+    a, b = flatten(got), flatten(want)
+    assert len(a) == len(b), (what, len(a), len(b))
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert (x is None) == (y is None), (what, i)
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x, y), (what, i)
+
+
+def _fits(case_args, args) -> None:
+    """The concrete arguments have the case's abstract shapes and dtypes."""
+    from repro_torch.models.params import flatten
+    want = [(t.shape, t.dtype) for t in flatten(case_args) if t is not None]
+    got = [(t.shape, t.dtype) for t in flatten(args) if t is not None]
+    assert got == want, (got[:4], want[:4])
+
+
+def case_parity(torch, dev):
+    """Phase 3s: ``launch/specs.build_case``'s steps on real bf16 tensors
+    (seed 0) under ``tp_rules`` with the 1x1 local mesh's axis sizes, each
+    output bitwise equal to the same entry point called directly with no
+    rules active (the annotations are no-ops in one process): glm4-9b at
+    full width and 2 layers (prefill 2 x 2048, then decode over the
+    caches it filled, the decode kernel at its group of 16), smollm-135m
+    at full size (the train case at 4 x 2048, n_micro and loss_chunk from
+    ``train_plan``), mixtral-8x7b at full width and 2 layers (prefill
+    1 x 4608 under expert_parallel rules, mesh None) and mamba2-370m at
+    full size (prefill 1 x 2048). The launch counts are set to 0 just
+    before each case's step and read just after. Returns
+    {case: {"s": seconds, "launches": {...}}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import build_case, train_plan
+    from repro_torch.models.model import decode_forward, prefill_forward
+    from repro_torch.models.params import init_params
+    from repro_torch.models.partitioning import current_rules, tp_rules
+    from repro_torch.models.transformer import clone_caches, make_caches
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train import make_train_step
+
+    sizes = make_local_mesh().axis_sizes
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    def model(arch, layers=None):
+        base = get_config(arch)
+        cfg = (dataclasses.replace(base, n_layers=layers,
+                                   name=f"{base.name}-{layers}layer")
+               if layers else base)
+        return cfg, init_params(cfg, gen, device=dev, dtype=bf16)
+
+    def tokens(cfg, shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def direct(name, fn):
+        """The entry point without rules, timed (the same work, warm)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fn()
+        torch.cuda.synchronize()
+        out[name]["direct_s"] = time.perf_counter() - t0
+        return want
+
+    def step(name, case, args, expect):
+        """Run the case's step, timed and counted; return its outputs."""
+        _fits(case.args, args)
+        assert current_rules() is None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = case.fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for wrapper in expect:
+            assert counts[wrapper] > 0, (name, counts)
+        out[name] = {"s": secs, "launches": counts}
+        log(f"  {name}: {secs:.3f} s; launches flash "
+            f"{counts['flash_attention']}, flash_bwd "
+            f"{counts['flash_attention_bwd']}, decode "
+            f"{counts['decode_attention']}, ssd_scan {counts['ssd_scan']}")
+        return got
+
+    def prefill(name, cfg, params, b, s, lengths, rules, expect):
+        case = build_case(cfg, InputShape(name, s, b, "prefill"), rules)
+        toks = tokens(cfg, (b, s))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        caches = make_caches(cfg, b, s, dtype=bf16, device=dev)
+        mine = clone_caches(caches)
+        got = step(name, case, (params, toks, lens, mine, None, None), expect)
+        want = direct(name, lambda: prefill_forward(params, cfg, toks, caches,
+                                                    lengths=lens))
+        _same(torch, name, got, want)
+        log(f"  {name}: logits and caches bitwise equal to prefill_forward "
+            f"without rules ({out[name]['direct_s']:.3f} s)")
+        return got
+
+    # glm4-9b, 2 layers: prefill, then decode over the caches it filled
+    cfg, params = model("glm4-9b", 2)
+    rules = tp_rules(axis_sizes=sizes)
+    logits, caches = prefill("glm4-9b prefill 2x2048", cfg, params, 2, 2048,
+                             [2047, 1500], rules, ("flash_attention",))
+    case = build_case(cfg, InputShape("decode", 2048, 2, "decode"), rules)
+    nxt = logits.argmax(-1).to(torch.int32)
+    mine = clone_caches(caches)
+    got = step("glm4-9b decode 2 (group 16)", case, (params, nxt, mine),
+               ("decode_attention",))
+    dec = clone_caches(caches)
+    want = direct("glm4-9b decode 2 (group 16)",
+                  lambda: decode_forward(params, cfg, nxt, dec))
+    _same(torch, "glm4 decode", got, want)
+    log(f"  glm4-9b decode: logits and caches bitwise equal to "
+        f"decode_forward without rules "
+        f"({out['glm4-9b decode 2 (group 16)']['direct_s']:.3f} s)")
+    del params, caches, mine, got, want
+    release(torch)
+
+    # smollm-135m, full size: the train case
+    cfg, params = model("smollm-135m")
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    n_micro, loss_chunk = train_plan(rules, shape)
+    case = build_case(cfg, shape, rules)
+    opt = AdamW()
+    state = opt.init(params)
+    batch = {k: tokens(cfg, (TRAIN_BATCH, TRAIN_SEQ))
+             for k in ("tokens", "labels")}
+    name = (f"smollm-135m train {TRAIN_BATCH}x{TRAIN_SEQ} (n_micro "
+            f"{n_micro}, loss_chunk {loss_chunk})")
+    got = step(name, case, (params, state, batch),
+               ("flash_attention", "flash_attention_bwd"))
+    plain = make_train_step(cfg, opt, remat=True, num_microbatches=n_micro,
+                            loss_chunk=loss_chunk)
+    want = direct(name, lambda: plain(params, state, batch))
+    _same(torch, "smollm train", got, want)
+    log(f"  smollm-135m train: params, AdamW state and metrics bitwise equal "
+        f"to make_train_step without rules ({out[name]['direct_s']:.3f} s, "
+        f"the same step warm); loss {float(got[2]['loss']):.4f}")
+    del params, state, got, want
+    release(torch)
+
+    # mixtral-8x7b, 2 layers, expert_parallel rules (mesh None: SPMD mode)
+    cfg, params = model("mixtral-8x7b", 2)
+    prefill(f"mixtral-8x7b prefill 1x{MOE_PARITY_LEN} (expert_parallel)",
+            cfg, params, 1, MOE_PARITY_LEN, [MOE_PROMPT],
+            tp_rules(axis_sizes=sizes, expert_parallel=True),
+            ("flash_attention",))
+    del params
+    release(torch)
+
+    # mamba2-370m, full size
+    cfg, params = model("mamba2-370m")
+    prefill(f"mamba2-370m prefill 1x{SSM_MAX_LEN}", cfg, params, 1,
+            SSM_MAX_LEN, [1900], rules, ("ssd_scan",))
+    del params
+    release(torch)
+    return out
+
+
+def meta_dryrun(smi):
+    """Phase 3d: the dry-run on the meta device (no card, nothing
+    allocated) of one case of each family on the 16x16 mesh, through
+    ``launch/dryrun.run_case``: per-device argument GiB, the analytic
+    compute and memory terms at H100 SXM constants, the bottleneck and
+    the seconds of each case. The whole sweep runs from the command line
+    (``python -m repro_torch.launch.dryrun --all --both-meshes``)."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape, kw in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        res = dryrun.run_case(arch, shape, rules_kw=dict(kw), save=False)
+        secs = time.perf_counter() - t0
+        r = res["roofline"]
+        assert res["outputs_match_donated"], res
+        log(f"  {arch} x {shape} x 16x16 {kw or 'baseline'}: {secs:.1f} s; "
+            f"args {res['memory']['argument_bytes'] / 2 ** 30:.2f} GiB/dev; "
+            f"analytic compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms (H100 SXM constants, "
+            f"{dryrun.PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+            f"{dryrun.HBM_BW / 1e12:.2f} TB/s; this card: {smi}); "
+            f"collective null; bound {r['bottleneck']}")
+        out[f"{arch} {shape}"] = dict(res, s=secs)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
 
@@ -2356,8 +2568,8 @@ def trace_step(torch, step_fn, params, state, batch):
                 parts={k: v[0] for k, v in parts.items()}, grads=grads)
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "4", "5", "5f",
-              "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7", "7t")
+ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "3s", "3d", "4",
+              "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7", "7t")
 
 
 def main() -> int:
@@ -2460,6 +2672,22 @@ def main() -> int:
         t0 = time.perf_counter()
         graph_counts = graph_parity(torch, dev)
         log(f"[3c] {time.perf_counter() - t0:.1f} s")
+    new_s = {}
+    if "3s" in phases:
+        log("[3s] the dry-run's case builders on the card: bf16, seed 0, "
+            "under tp_rules of the 1x1 local mesh, bitwise against the "
+            "entry points without rules")
+        t0 = time.perf_counter()
+        case_parity(torch, dev)
+        new_s["3s"] = time.perf_counter() - t0
+        log(f"[3s] {new_s['3s']:.1f} s")
+    if "3d" in phases:
+        log("[3d] dry-run on the meta device, 16x16 mesh, one case of each "
+            "family (analytic terms at H100 SXM constants)")
+        t0 = time.perf_counter()
+        meta_dryrun(smi)
+        new_s["3d"] = time.perf_counter() - t0
+        log(f"[3d] {new_s['3d']:.1f} s")
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
@@ -2691,7 +2919,9 @@ def main() -> int:
             f"{train['peak_bytes'] / 2 ** 30:.2f} GiB allocated; traced step "
             f"{tr['wall_ms']:.1f} ms wall, {tr['device_ms']:.1f} ms device, "
             f"the gradient kernels {sum(tr['grads'].values()):.1f} ms")
-    log(f"[6] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[6] total {time.perf_counter() - t_start:.1f} s, of which the "
+        f"dry-run phases {sum(new_s.values()):.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in new_s.items())})")
 
     rows = []
     for kname in KERNEL_INFO:

@@ -137,13 +137,16 @@ HEAD_DIMS = (32, 64, 128)
 
 def is_plain(*tensors) -> bool:
     """True when the call takes the plain PyTorch version: only for
-    tensors that lie on the CPU. A CUDA tensor goes to the kernel."""
+    tensors that lie on the CPU, or all on the ``meta`` device (the
+    dry-run, which computes shapes and no values). A CUDA tensor goes to
+    the kernel."""
     devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
+    if devs in ({"cpu"}, {"meta"}):
         return True
     if devs != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"tensors must all lie on one CUDA device or all "
-                         f"on the CPU, got {sorted(map(str, devs))}")
+        raise ValueError(f"tensors must all lie on one CUDA device, all on "
+                         f"the CPU or all on meta, got "
+                         f"{sorted(map(str, devs))}")
     return False
 
 

@@ -4,7 +4,8 @@ Keeps the routing of ``repro/kernels/ops.py``: a single-token causal
 query goes to the decode kernel, any other query to the flash kernel,
 decode against a paged pool to the paged kernel, and the SSD prefill
 scan to the ssd_scan kernel. Each wrapper runs its CUDA kernel on CUDA
-tensors and its plain PyTorch version on CPU tensors; there is no other
+tensors and its plain PyTorch version on CPU tensors (and on ``meta``
+tensors, where the dry-run computes shapes only); there is no other
 switch.
 """
 from __future__ import annotations

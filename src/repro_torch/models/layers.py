@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
+from repro_torch.models.partitioning import shard
 
 FP8 = K.FP8
 # the largest magnitude that rounds into float8_e4m3fn (448 and the tie
@@ -133,10 +134,11 @@ def cross_attention_block(p, x, positions, enc_kv, cfg: ModelConfig):
     k, v, enc_pos = enc_kv
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
     q = _split_heads(h @ p["xwq"], cfg.n_heads, cfg.head_dim)
+    q = shard(q, "batch", None, "act_heads", None)
     out = K.attention(q, k.to(q.dtype), v.to(q.dtype), positions, enc_pos,
                       causal=False)
     out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
-    return x + out @ p["xwo"]
+    return x + shard(out @ p["xwo"], "batch", None, "act_embed")
 
 
 def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
@@ -166,9 +168,14 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
     The cache views are written in place. Returns (out, cache_views_or_None).
     """
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    # q/k/v are constrained on their HEAD axes (shard() leaves a head
+    # count that the model axis does not divide whole)
     q = _split_heads(h @ p["wq"], cfg.n_heads, cfg.head_dim)
+    q = shard(q, "batch", None, "act_heads", None)
     k = _split_heads(h @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(h @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    k = shard(k, "batch", None, "act_kv_heads", None)
+    v = shard(v, "batch", None, "act_kv_heads", None)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     b = x.shape[0]
@@ -279,11 +286,13 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
                           causal=causal)
 
     out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
-    return x + out @ p["wo"], new_cache
+    out = shard(out @ p["wo"], "batch", None, "act_embed")
+    return x + out, new_cache
 
 
 def mlp_block(p, x, cfg: ModelConfig):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    up = h @ p["wi"]
-    gate = h @ p["wg"]
-    return x + (F.silu(gate) * up) @ p["wo"]
+    up = shard(h @ p["wi"], "batch", None, "act_ff")
+    gate = shard(h @ p["wg"], "batch", None, "act_ff")
+    out = (F.silu(gate) * up) @ p["wo"]
+    return x + shard(out, "batch", None, "act_embed")

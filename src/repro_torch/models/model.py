@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.partitioning import shard
 
 
 def _ce_loss(params, cfg: ModelConfig, h_text, targets):
@@ -142,6 +143,7 @@ def decode_forward(params, cfg: ModelConfig, tokens, caches):
     """
     positions = caches["len"][:, None].to(torch.int32)          # (B, 1)
     x = params["embed"][tokens.long()[:, None]]
+    x = shard(x, "batch", None, "act_embed")
     h, new_caches, _ = T.run_decoder(params, cfg, x, positions,
                                      caches=caches)
     logits = T.lm_logits(params, cfg, h)[:, 0]

@@ -13,8 +13,14 @@ runs inside a captured CUDA graph (``serving/graphs.py``). The expert
 buffers are filled by a gather (each slot reads the selection that
 owns it), and the combine puts the slots back in token order (a scatter
 of a permutation) and adds each token's k contributions in a fixed
-order: no atomics, so a replay is bitwise equal to the eager step. The reference's
-expert-parallel ``shard_map`` branch is not ported (see ROADMAP.md).
+order: no atomics, so a replay is bitwise equal to the eager step.
+
+Of the reference's three sharding modes (see partitioning.tp_rules) the
+port runs MoE-TP and the expert-sharded SPMD mode, whose constraints go
+through ``shard``. The explicit expert-parallel ``shard_map`` branch
+(``rules.mesh`` set and the expert axis split) is not ported yet:
+``moe_block`` raises there (ROADMAP.md Queue 1, the expert-parallel
+item).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.partitioning import current_rules, shard
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -102,9 +109,21 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     ebuf = ebuf.reshape(B, E, C, d)
 
     # ---- expert computation (gated MLP), one batched product an expert ----
+    rules = current_rules()
+    if rules is not None and rules.mesh is not None \
+            and rules.size("expert") > 1 and E % rules.size("expert") == 0:
+        raise NotImplementedError(
+            "moe_block: the explicit expert-parallel branch (rules.mesh set, "
+            f"the expert axis split {rules.size('expert')} ways) is not "
+            "ported yet (ROADMAP.md Queue 1, the expert-parallel shard_map "
+            "branch over torch.distributed); build the rules with mesh=None "
+            "for the expert-sharded SPMD mode")
+    ebuf = shard(ebuf, "batch", "act_expert", None, None)
     up = torch.einsum("becd,edf->becf", ebuf, p["wi"])
     gate = torch.einsum("becd,edf->becf", ebuf, p["wg"])
-    out = torch.einsum("becf,efd->becd", F.silu(gate) * up, p["wo"])
+    act = shard(F.silu(gate) * up, "batch", "act_expert", None, "act_ff")
+    out = torch.einsum("becf,efd->becd", act, p["wo"])
+    out = shard(out, "batch", "act_expert", None, None)
 
     # ---- combine: each selection, in token order (t * k + j), reads its
     # slot's output (the zero row E*C when it was dropped) weighted by its
@@ -120,4 +139,5 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     y = got[:, :, 0]
     for j in range(1, k):
         y = y + got[:, :, j]
+    y = shard(y, "batch", None, "act_embed")
     return x + y, aux

@@ -3,7 +3,9 @@
 ``param_structure(cfg)`` returns the same tree of ``ParamSpec`` as
 ``repro/models/params.py`` (nested dicts, a list of per-pattern-position
 blocks, and the stacked leading ``layers`` dim that the reference adds for
-``lax.scan``); ``init_params`` materialises it as a dict of tensors.
+``lax.scan``); ``init_params`` materialises it as a dict of tensors,
+``abstract_params`` as tensors on the ``meta`` device (shapes and dtypes
+only, for the dry-run), and ``param_pspecs`` maps it to partition specs.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models.partitioning import (PartitionSpec, ShardingRules,
+                                             logical_to_pspec)
 from repro_torch.runtime import resolve_device
 
 
@@ -23,11 +27,16 @@ class ParamSpec(NamedTuple):
     init: str = "normal"          # 'normal' | 'zeros' | 'ones' | 'ssm_a'
 
 
+# tuples that are leaves of a tree, not nodes
+_LEAF_TUPLES = (ParamSpec, PartitionSpec)
+
+
 def map_tree(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a tree of dicts / lists / tuples."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamSpec):
+    if isinstance(tree, (list, tuple)) and not isinstance(
+            tree, _LEAF_TUPLES):
         return type(tree)(map_tree(fn, v) for v in tree)
     return fn(tree)
 
@@ -45,7 +54,8 @@ def flatten(tree) -> list:
     sum follow this one, so that they agree with the reference's."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in flatten(tree[k])]
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, ParamSpec):
+    if isinstance(tree, (list, tuple)) and not isinstance(
+            tree, _LEAF_TUPLES):
         return [x for v in tree for x in flatten(v)]
     return [tree]
 
@@ -59,7 +69,7 @@ def unflatten(like, flat) -> Any:
         if isinstance(t, dict):
             got = {k: build(t[k]) for k in sorted(t)}
             return {k: got[k] for k in t}
-        if isinstance(t, (list, tuple)) and not isinstance(t, ParamSpec):
+        if isinstance(t, (list, tuple)) and not isinstance(t, _LEAF_TUPLES):
             return type(t)(build(v) for v in t)
         return next(it)
 
@@ -175,6 +185,22 @@ def param_structure(cfg: ModelConfig) -> Dict[str, Any]:
         tree["projector"] = ParamSpec(
             (cfg.frontend.feature_dim, d), (None, "embed"))
     return tree
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16
+                    ) -> Dict[str, Any]:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+    storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return map_tree(
+        lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+        param_structure(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, rules: Optional[ShardingRules]):
+    """The parameter tree's partition specs: each leaf's logical axes
+    through ``rules``."""
+    return map_tree(lambda s: logical_to_pspec(s.axes, rules),
+                    param_structure(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.partitioning import shard
 
 
 class SSMCache(NamedTuple):
@@ -102,6 +103,7 @@ def ssm_block(p, x, cfg: ModelConfig, *,
 
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     zxbcdt = h @ p["w_in"]                            # (B,S, 2*inner+2N+nh)
+    zxbcdt = shard(zxbcdt, "batch", None, "act_inner")
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner: 2 * inner + 2 * N]
     dt = zxbcdt[..., 2 * inner + 2 * N:]              # (B,S,nh)
@@ -139,4 +141,4 @@ def ssm_block(p, x, cfg: ModelConfig, *,
     y = y.reshape(bsz, S, inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["out_norm"],
                  cfg.norm_eps)
-    return x + y @ p["w_out"], cache
+    return x + shard(y @ p["w_out"], "batch", None, "act_embed"), cache

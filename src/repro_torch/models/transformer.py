@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models.partitioning import logical_to_pspec, shard
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +100,63 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     return caches
 
 
+def cache_pspecs(cfg: ModelConfig, rules, layout: str = "dense"
+                 ) -> Dict[str, Any]:
+    """Partition specs matching ``make_caches``' structure.
+
+    KV-cache sharding adapts per arch: heads when n_kv_heads divides the
+    model axis (classic TP), else the sequence dim (flash-decode style) —
+    e.g. smollm's kv=3 or glm4's kv=2 cannot split 16 ways by head.
+    layout="paged": the pool's page axis takes the role of the sequence
+    axis (pages spread flash-decode style); the block table and lengths
+    stay batch-sharded.
+    """
+    lp = logical_to_pspec
+    paged = layout == "paged"
+    head_ok = (rules is not None and rules.size("kv_heads") > 1 and
+               cfg.n_kv_heads % rules.size("kv_heads") == 0)
+    seq_pref = rules is not None and rules.size("kv_seq") > 1
+    if paged:
+        # (repeats, n_pages, page, nkv, hd)
+        kv_axes = ("layers", "kv_seq", None,
+                   "kv_heads" if head_ok else None, None)
+        pos_axes = None
+    elif rules is not None and not head_ok and not seq_pref:
+        # fall back to sequence sharding on whatever axis 'kv_heads' used
+        kv_axes = ("layers", "batch", "kv_heads", None, None)
+        pos_axes = ("layers", "batch", "kv_heads")
+    else:
+        kv_axes = ("layers", "batch", "kv_seq",
+                   "kv_heads" if head_ok else None, None)
+        pos_axes = ("layers", "batch", "kv_seq")
+    attn, ssm = [], []
+    for spec in cfg.pattern:
+        if spec.mixer in ("attn", "swa"):
+            kv = lp(kv_axes, rules)
+            if paged:
+                attn.append(L.PagedAttnCache(kv, kv))
+            else:
+                attn.append(L.AttnCache(kv, kv, lp(pos_axes, rules)))
+            ssm.append(None)
+        elif spec.mixer == "ssm":
+            st = lp(("layers", "batch", "act_heads", None, None), rules)
+            cv = lp(("layers", "batch", None, "act_inner"), rules)
+            attn.append(None)
+            ssm.append(SSM.SSMCache(st, cv))
+        else:
+            attn.append(None)
+            ssm.append(None)
+    cross = None
+    if cfg.encoder is not None:
+        kv = lp(("layers", "batch", None, "kv_heads", None), rules)
+        cross = L.CrossCache(kv, kv, lp(("layers", "batch", None), rules))
+    specs = {"attn": tuple(attn), "ssm": tuple(ssm), "cross": cross,
+             "len": lp(("batch",), rules)}
+    if paged:
+        specs["pages"] = lp(("batch", None), rules)
+    return specs
+
+
 def reset_caches(caches) -> None:
     """Write back, in place, what ``make_caches`` puts in a fresh cache:
     zeros, and -1 (empty slot) in every ``kv_pos`` and in enc_pos."""
@@ -156,7 +214,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens,
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).repeat(b, 1)
-    return x, positions
+    return shard(x, "batch", None, "act_embed"), positions
 
 
 def scatter_mm_features(x, positions, mm_feats, mm_start):
@@ -183,7 +241,7 @@ def scatter_mm_features(x, positions, mm_feats, mm_start):
 
 def lm_logits(params, cfg: ModelConfig, h):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    return shard(h @ w.to(h.dtype), "batch", None, "act_vocab")
 
 
 # ---------------------------------------------------------------------------

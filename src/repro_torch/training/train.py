@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import partitioning
 from repro_torch.models.model import train_forward
 from repro_torch.models.params import leaves, map_tree
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -27,13 +28,22 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
     metrics).
 
     num_microbatches > 1 accumulates gradients over that many slices of
-    the batch. grad_specs (the reference's sharding constraint on the
-    gradient accumulator) must be None: the port trains on one device.
+    the batch. grad_specs: optional tree of partition specs matching
+    params (``params.param_pspecs``); with microbatches, each
+    micro-gradient and the accumulator are constrained to it leaf by
+    leaf through ``partitioning._constrain``, as the reference pins its
+    accumulator to the ZeRO shards. In one process that is a no-op.
     """
-    if grad_specs is not None:
-        raise ValueError(
-            "grad_specs: sharded gradients need the port's multi-device "
-            "training, ROADMAP Queue 1 item 8; on one device pass None")
+    def _constrain(tree):
+        if grad_specs is None:
+            return tree
+        specs = leaves(grad_specs)
+        if len(specs) != len(leaves(tree)):
+            raise ValueError(f"grad_specs: {len(specs)} specs for "
+                             f"{len(leaves(tree))} gradient leaves")
+        it = iter(specs)
+        return map_tree(lambda g: partitioning._constrain(g, next(it)),
+                        tree)
 
     def value_and_grad(params, batch):
         live = map_tree(lambda t: t.detach().requires_grad_(True), params)
@@ -52,16 +62,18 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
         else:
             n = num_microbatches
             dev = leaves(params)[0].device
-            g_sum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=dev), params)
+            g_sum = _constrain(map_tree(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=dev), params))
             l_sum = torch.zeros((), device=dev)
             a_sum = torch.zeros((), device=dev)
             for i in range(n):
                 mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 m, g = value_and_grad(params, mb)
-                it = iter(leaves(g))
-                g_sum = map_tree(lambda a: a + next(it).float(), g_sum)
+                it = iter(leaves(_constrain(g)))
+                g_sum = _constrain(
+                    map_tree(lambda a: a + next(it).float(), g_sum))
                 l_sum = l_sum + m["loss"]
                 a_sum = a_sum + m["aux"]
             grads = map_tree(lambda g: g / n, g_sum)

@@ -272,7 +272,10 @@ def test_port_imports_without_jax_or_reference():
         "assert {'repro_torch.training.optimizer', 'repro_torch.training.data',\n"
         "        'repro_torch.training.train', 'repro_torch.training.checkpoint',\n"
         "        'repro_torch.launch.train',\n"
-        "        'repro_torch.launch.analytic'} <= set(names), names\n"
+        "        'repro_torch.launch.analytic',\n"
+        "        'repro_torch.models.partitioning', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.distributed', 'repro_torch.launch.specs',\n"
+        "        'repro_torch.launch.dryrun'} <= set(names), names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

@@ -235,9 +235,16 @@ def test_synthetic_batches_bitwise(arch, mm):
 
 
 def test_grad_specs_not_none_raises():
+    """grad_specs is taken now (tests/test_torch_specs.py runs it); a
+    tree that does not match the parameters' raises, as the reference's
+    tree map over the gradients does."""
     cfg = get_config("smollm-135m").reduced()
-    with pytest.raises(ValueError, match="item 8"):
-        make_train_step(cfg, AdamW(), grad_specs={"embed": None})
+    params = _params(cfg)
+    batch = next(synthetic_batches(cfg, 2, 16, 1, seed=6, device="cpu"))
+    step = make_train_step(cfg, AdamW(), num_microbatches=2,
+                           grad_specs={"embed": None})
+    with pytest.raises(ValueError, match="grad_specs"):
+        step(params, AdamW().init(params), batch)
 
 
 def test_step_leaves_its_inputs_unchanged():

@@ -88,6 +88,19 @@ Phases (every failure raises and ends the run with a non-zero code):
      case of each family on the 16x16 mesh: per-device argument GiB, the
      analytic compute and memory terms at H100 SXM constants, the
      bottleneck, seconds a case;
+  3e. the expert-parallel branch of ``moe_block`` across ranks
+     (``launch/ranks.py``): mixtral-8x7b at full width, 8 of 32 layers,
+     bf16, on a process mesh of 1 x 2 (each rank 4 of the 8 experts,
+     drawn layer by layer; NCCL with one card a rank where the cards
+     suffice, else both ranks on one card over gloo, the line says
+     which): the case builders' prefill 1 x 4608 and a decode step over
+     its caches, held on every rank to the single-process run of the
+     same parameters (logits and caches within the bf16 tolerance,
+     greedy tokens equal up to a reported bf16 tie, flash and decode
+     launched, all-gather bytes equal to layers x B x E x C x d x 2),
+     and a train step at 1 x 2 on 1 layer (loss, per-leaf sums of
+     squares of the new blocks); where 4 cards exist, all 32 layers at
+     ep = 4 over NCCL, the ranks bitwise equal to each other;
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -238,6 +251,14 @@ DRYRUN_CASES = (("glm4-9b", "decode_32k", ()),
                 ("mixtral-8x7b", "prefill_32k", (("expert_parallel", True),)),
                 ("mamba2-370m", "long_500k", ()),
                 ("whisper-base", "train_4k", ()))
+# phase 3e: the expert-parallel branch across ranks
+EP_MESH = (1, 2)         # data x model: each rank 4 of mixtral's 8 experts
+EP_TRAIN = (1, 512)      # its train step: batch x length
+# at full width one layer's train step needs about 41 GB in one process
+# and two ranks on one card about 23 GB each; two layers would need 82 GB
+EP_TRAIN_LAYERS = 1
+EP_DIGEST_RTOL = 1e-2    # per-leaf sums of squares after the train step
+RANKS_TIMEOUT = 600      # seconds a group of ranks may take
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -1894,6 +1915,234 @@ def meta_dryrun(smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the expert-parallel branch across ranks
+# ---------------------------------------------------------------------------
+
+def _greedy(torch, label, got, want) -> int:
+    """Hold each row's greedy token of ``got`` to ``want``'s (f32 logits
+    of bf16 runs): equal, or a near-tie of ``want``, the two tokens its
+    top two within TIE_ULPS bf16 ulps of its top logit (reported). Returns
+    the rows where they part."""
+    parted = 0
+    for row, (a, b) in enumerate(zip(got.argmax(-1).tolist(),
+                                     want.argmax(-1).tolist())):
+        if a == b:
+            continue
+        top2 = torch.topk(want[row], 2)
+        gap = abs(want[row, a] - want[row, b]).item()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top2.values[0].item()))) - 7)
+        ok = set(top2.indices.tolist()) == {a, b} and gap <= TIE_ULPS * ulp
+        log(f"    {label} row {row}: greedy {a} against {b}, gap "
+            f"{gap / ulp:.2f} bf16 ulps (at most {TIE_ULPS}): "
+            f"{'a bf16 tie' if ok else 'FAIL'}")
+        assert ok, (label, row, a, b, gap, ulp)
+        parted += 1
+    return parted
+
+
+def _gathered_bytes(cfg, b, s) -> int:
+    """The closed form of a step's all-gather bytes on a rank: the
+    expert outputs (B, E, C, d) in bf16, once a MoE layer."""
+    from repro_torch.models.moe import capacity
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.pattern) * cfg.n_repeats
+    return n_moe * b * cfg.moe.n_experts * capacity(cfg, s) * \
+        cfg.d_model * 2
+
+
+def expert_parallel_ranks(torch, dev, smi):
+    """Phase 3e: the explicit expert-parallel branch of ``moe_block``
+    across two ranks (a process mesh of 1 x 2, ``launch/ranks.py``),
+    each holding 4 of mixtral-8x7b's 8 experts: NCCL with one card a rank
+    where the cards suffice, else both ranks on this card over gloo. The
+    single-process run of the same plan and parameters goes first, its
+    outputs kept on the host and its card memory freed before the ranks
+    start. Held on every rank: the case builders' prefill at 1 x
+    MOE_PARITY_LEN and a decode step over its caches (full width,
+    MOE_LAYERS layers, bf16, seed 0; serving rules; every step timed
+    warm, after a run on copies of what it writes): logits and caches
+    within TOL["bfloat16"], greedy tokens equal up to a reported bf16
+    tie, flash and decode launches, the all-gather bytes of the closed
+    form; then a train step at 1 x 2 (fsdp rules, full width, 1 layer):
+    loss and aux, the per-leaf sums of squares of the new parameters and
+    AdamW state against the single-process step's blocks, flash and its
+    gradient launched, the squared norm all-reduced. Where 4 cards exist,
+    all 32 layers at ep = 4 over NCCL too (no single-process reference:
+    93.4 GB do not fit a card; the ranks, holding the same rows, must
+    agree bitwise)."""
+    import shutil
+
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch.mesh import MeshDesc
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.params import flatten
+
+    n_cards = torch.cuda.device_count()
+    desc = MeshDesc(EP_MESH, ("data", "model"))
+    backend = "nccl" if n_cards >= desc.size else "gloo"
+    serve = R.Plan("mixtral-8x7b", reduced=False, layers=MOE_LAYERS,
+                   dtype="bfloat16",
+                   prefill=(1, MOE_PARITY_LEN, (MOE_PROMPT,)), decode=True,
+                   warm=True)
+    train = R.Plan("mixtral-8x7b", reduced=False, layers=EP_TRAIN_LAYERS,
+                   dtype="bfloat16", fsdp=True, train=EP_TRAIN, digest=True,
+                   warm=True)
+    cfg = R.plan_config(serve)
+    tol = TOL["bfloat16"]
+    out = {"backend": backend, "cards": n_cards}
+
+    # -- the single-process reference ----------------------------------------
+    t0 = time.perf_counter()
+    ref = R.run_plan(serve, desc, dev)
+    ref = {k: dict(v, out=R.to_cpu(v["out"])) for k, v in ref.items()}
+    out["reference_s"] = time.perf_counter() - t0
+    release(torch)
+    cfg_t = R.plan_config(train)
+    rules_t = R.plan_rules(train, desc, desc)
+    t0 = time.perf_counter()
+    ref_t = R.run_plan(dataclasses.replace(train, digest=False), desc,
+                       dev)["train"]
+    params, state, metrics = ref_t["out"]
+    want_t = []
+    for r in range(desc.size):
+        mine = R.rank_block(cfg_t, ("params", "opt"), (None, None),
+                            (params, state), rules_t,
+                            R.coordinates(desc, r))
+        want_t.append((R.digest(mine[0]), R.digest(mine[1])))
+        del mine
+    metrics = R.to_cpu(metrics)
+    out["reference_train_s"] = time.perf_counter() - t0
+    log(f"  single process: prefill {ref['prefill']['s']:.3f} s, decode "
+        f"{ref['decode']['s']:.3f} s ({MOE_LAYERS} layers, "
+        f"{cfg.moe.n_experts} experts); "
+        f"train {ref_t['s']:.3f} s ({EP_TRAIN_LAYERS} layer); launches "
+        f"{ref['prefill']['launches']['flash_attention']} flash, "
+        f"{ref['decode']['launches']['decode_attention']} decode")
+    del ref_t, params, state
+    release(torch)
+
+    # -- the ranks -----------------------------------------------------------
+    run_dir = ROOT / "build" / "ranks_3e"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    got = R.run_ranks(desc, [("plan", dict(plan=serve)),
+                             ("plan", dict(plan=train))],
+                      backend=backend, device="cuda", run_dir=run_dir,
+                      timeout=RANKS_TIMEOUT)
+    out["ranks_s"] = time.perf_counter() - t0
+    b, s = 1, MOE_PARITY_LEN
+    bytes_want = {"prefill": _gathered_bytes(cfg, b, s),
+                  "decode": _gathered_bytes(cfg, b, 1)}
+    for r, (res, res_t) in enumerate(got):
+        for kind in ("prefill", "decode"):
+            logits, caches = res[kind]["out"]
+            w_logits, w_caches = ref[kind]["out"]
+            err = (logits - w_logits).abs().max().item()
+            assert torch.isfinite(logits).all() and torch.allclose(
+                logits, w_logits, **tol), (r, kind, err)
+            c_err, c_same = 0.0, True
+            for a, w in zip(flatten(caches), flatten(w_caches)):
+                if a is None:
+                    continue
+                assert a.shape == w.shape and a.dtype == w.dtype
+                c_same &= torch.equal(a, w)
+                if a.is_floating_point():
+                    c_err = max(c_err, (a.float() - w.float()).abs().max()
+                                .item())
+                    assert torch.allclose(a.float(), w.float(), **tol)
+                else:
+                    assert torch.equal(a, w), (r, kind)
+            parted = _greedy(torch, f"rank {r} {kind}", logits, w_logits)
+            n = res[kind]["launches"]
+            wrapper = ("flash_attention" if kind == "prefill"
+                       else "decode_attention")
+            assert n[wrapper] > 0, (r, kind, n)
+            coll = res[kind]["collectives"]
+            assert coll == {"all-gather": bytes_want[kind]}, (
+                r, kind, coll, bytes_want[kind])
+            log(f"  rank {r} {kind}: {res[kind]['s']:.3f} s; logits "
+                f"max_abs_err {err:.3e} (bitwise "
+                f"{torch.equal(logits, w_logits)}), caches max_abs_err "
+                f"{c_err:.3e} (bitwise {c_same}), greedy parted {parted}; "
+                f"{n[wrapper]} {wrapper}; all-gather "
+                f"{coll['all-gather']} bytes = closed form "
+                f"{MOE_LAYERS} x {b} x {cfg.moe.n_experts} x "
+                f"{capacity(cfg, s if kind == 'prefill' else 1)} x "
+                f"{cfg.d_model} x 2 over {res[kind]['calls']['all-gather']}"
+                f" calls")
+        p_dig, s_dig, m = res_t["train"]["out"]
+        w_p, w_s = want_t[r]
+        for what, a, w in (("params", p_dig, w_p), ("AdamW", s_dig, w_s)):
+            rel = ((a[:, 1] - w[:, 1]).abs()
+                   / w[:, 1].abs().clamp(min=1e-30)).max().item()
+            assert rel <= EP_DIGEST_RTOL, (r, what, rel)
+            log(f"  rank {r} train: {what} sums of squares, {a.shape[0]} "
+                f"leaves, max relative difference {rel:.3e}")
+        for k in ("loss", "aux"):
+            assert torch.allclose(m[k], metrics[k], **tol), (k, m[k],
+                                                             metrics[k])
+        n = res_t["train"]["launches"]
+        coll = res_t["train"]["collectives"]
+        assert n["flash_attention"] > 0 and n["flash_attention_bwd"] > 0, n
+        assert coll.get("all-reduce") == 4, coll
+        log(f"  rank {r} train {EP_TRAIN[0]}x{EP_TRAIN[1]}: "
+            f"{res_t['train']['s']:.3f} s; loss {float(m['loss']):.5f} "
+            f"(one process {float(metrics['loss']):.5f}), aux "
+            f"{float(m['aux']):.5f} ({float(metrics['aux']):.5f}); "
+            f"{n['flash_attention']} flash, {n['flash_attention_bwd']} "
+            f"flash_bwd; collectives {coll}")
+    out["ranks"] = [{k: {"s": v["s"], "collectives": v["collectives"]}
+                     for k, v in {**res, **res_t}.items()}
+                    for res, res_t in got]
+    log(f"  [3e] backend {backend} ({n_cards} card(s)): ranks "
+        f"{out['ranks_s']:.1f} s (spawn, parameters, steps); the single "
+        f"process {out['reference_s']:.1f} + {out['reference_train_s']:.1f}"
+        f" s; on {smi}")
+    del got, ref
+    release(torch)
+
+    # -- all 32 layers at ep = 4, where 4 cards exist ------------------------
+    if n_cards < 4:
+        log(f"  [3e] full depth at ep = 4 over NCCL did not run: "
+            f"{n_cards} card(s), 4 needed")
+        return out
+    full = R.Plan("mixtral-8x7b", reduced=False, dtype="bfloat16",
+                  prefill=(1, MOE_PARITY_LEN, (MOE_PROMPT,)), decode=True,
+                  digest=True, warm=True)
+    cfg = R.plan_config(full)
+    desc4 = MeshDesc((1, 4), ("data", "model"))
+    run_dir = ROOT / "build" / "ranks_3e_full"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    got = R.run_ranks(desc4, [("plan", dict(plan=full))], backend="nccl",
+                      device="cuda", run_dir=run_dir,
+                      timeout=RANKS_TIMEOUT)
+    out["full_s"] = time.perf_counter() - t0
+    first = got[0][0]
+    for r, (res,) in enumerate(got):
+        for kind, seq in (("prefill", s), ("decode", 1)):
+            logits, dig = res[kind]["out"]
+            assert torch.isfinite(logits).all(), (r, kind)
+            assert torch.equal(logits, first[kind]["out"][0]), (r, kind)
+            assert torch.equal(dig, first[kind]["out"][1]), (r, kind)
+            wrapper = ("flash_attention" if kind == "prefill"
+                       else "decode_attention")
+            assert res[kind]["launches"][wrapper] > 0
+            assert res[kind]["collectives"] == {
+                "all-gather": _gathered_bytes(cfg, 1, seq)}, (r, kind)
+            log(f"  full depth, rank {r} {kind}: {res[kind]['s']:.3f} s; "
+                f"{res[kind]['launches'][wrapper]} {wrapper}; all-gather "
+                f"{res[kind]['collectives']['all-gather']} bytes (closed "
+                f"form); logits and cache sums bitwise rank 0's; greedy "
+                f"{logits.argmax(-1).tolist()}")
+    log(f"  [3e] full depth: {cfg.n_layers} layers, "
+        f"{cfg.moe.n_experts // desc4.size} of {cfg.moe.n_experts} experts "
+        f"a rank, NCCL over {desc4.size} cards: {out['full_s']:.1f} s; on "
+        f"{smi}")
+    release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
 
@@ -2568,8 +2817,9 @@ def trace_step(torch, step_fn, params, state, batch):
                 parts={k: v[0] for k, v in parts.items()}, grads=grads)
 
 
-ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "3s", "3d", "4",
-              "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7", "7t")
+ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "3s", "3d", "3e",
+              "4", "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7",
+              "7t")
 
 
 def main() -> int:
@@ -2688,6 +2938,14 @@ def main() -> int:
         meta_dryrun(smi)
         new_s["3d"] = time.perf_counter() - t0
         log(f"[3d] {new_s['3d']:.1f} s")
+    if "3e" in phases:
+        log(f"[3e] the expert-parallel branch across ranks: mixtral-8x7b "
+            f"full width, {MOE_LAYERS} layers, bf16, a process mesh of "
+            f"{EP_MESH[0]} x {EP_MESH[1]}, against one process")
+        t0 = time.perf_counter()
+        expert_parallel_ranks(torch, dev, smi)
+        new_s["3e"] = time.perf_counter() - t0
+        log(f"[3e] {new_s['3e']:.1f} s")
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")
@@ -2920,7 +3178,7 @@ def main() -> int:
             f"{tr['wall_ms']:.1f} ms wall, {tr['device_ms']:.1f} ms device, "
             f"the gradient kernels {sum(tr['grads'].values()):.1f} ms")
     log(f"[6] total {time.perf_counter() - t_start:.1f} s, of which the "
-        f"dry-run phases {sum(new_s.values()):.1f} s "
+        f"dry-run and rank phases {sum(new_s.values()):.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in new_s.items())})")
 
     rows = []

@@ -16,9 +16,9 @@ Per case, records:
     against the mesh as the reference's ``_shard_tree`` does (a dim the
     mesh axes do not divide stays whole);
   * the analytic roofline terms (``launch/analytic.py``) at H100 SXM
-    constants. The collective term waits for collective accounting
-    across ranks, and peak bytes have no counterpart of XLA's memory
-    analysis: both are written as null.
+    constants. The collective term has no count on the meta device
+    (``COLLECTIVE_REASON``), and peak bytes have no counterpart of XLA's
+    memory analysis: both are written as null.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k
@@ -52,8 +52,10 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
-COLLECTIVE_REASON = ("collective accounting across ranks comes with the "
-                     "expert-parallel port (ROADMAP.md Queue 1)")
+COLLECTIVE_REASON = ("the port has no tensor-parallel collectives, and no "
+                     "count of collectives on the meta device: it counts "
+                     "them only where live ranks call them "
+                     "(launch/collectives.py; ROADMAP.md Queue 1)")
 PEAK_REASON = "no counterpart of XLA's memory analysis in the port"
 
 
@@ -136,8 +138,9 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
     kv_dtype = None
     if rules_kw.pop("kv_fp8", False):
         kv_dtype = torch.float8_e4m3fn
-    # the explicit expert-parallel branch is not ported yet: the rules
-    # carry no mesh, so MoE layers take the expert-sharded SPMD mode
+    # the explicit expert-parallel branch runs across live ranks only
+    # (launch/ranks.py): the rules carry no mesh, so MoE layers take the
+    # expert-sharded SPMD mode
     rules = tp_rules(multi_pod=multi_pod, axis_sizes=axis_sizes, mesh=None,
                      **rules_kw)
     case = build_case(cfg, shape, rules, kv_dtype=kv_dtype)

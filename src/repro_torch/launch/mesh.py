@@ -1,10 +1,14 @@
-"""Production mesh descriptions.
+"""Meshes: descriptions, and a mesh over live ranks.
 
-The reference's meshes (``repro/launch/mesh.py``) as shapes and axis
-names only: the dry-run reads the axis sizes to size each device's
-shard, and nothing here touches a device or ``torch.distributed``. A
-device mesh over real ranks comes with the first collective that needs
-one.
+``MeshDesc`` holds the reference's meshes (``repro/launch/mesh.py``) as
+shapes and axis names only: the dry-run reads the axis sizes to size
+each device's shard, and a description touches no device and no
+``torch.distributed``. ``ProcessMesh`` lays a description over the live
+process group, one rank a mesh position (row-major, as ``jax.make_mesh``
+lays devices), through torch's ``init_device_mesh``: the expert-parallel
+branch of ``models/moe.py`` is the first collective that needs one, and
+calls its collectives over the groups of its axes
+(``launch/collectives.py``).
 """
 from __future__ import annotations
 
@@ -38,3 +42,42 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshDesc:
 def make_local_mesh() -> MeshDesc:
     """1x1 mesh over the single local device (tests / examples)."""
     return MeshDesc((1, 1), ("data", "model"))
+
+
+class ProcessMesh:
+    """A ``MeshDesc`` over the live process group: its size must equal
+    the world size. ``axis_sizes`` and ``axis_names`` read as the
+    description's, so ``ShardingRules.size`` works as it does with one;
+    ``coordinate(axis)`` is this rank's index along an axis and
+    ``group(axis)`` the process group of the ranks that differ from this
+    one only along it."""
+
+    def __init__(self, desc: MeshDesc, device_type: str):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessMesh: no process group; join one "
+                               "first (launch/distributed.py)")
+        world = dist.get_world_size()
+        if desc.size != world:
+            raise ValueError(f"ProcessMesh: mesh {desc.shape} holds "
+                             f"{desc.size} ranks, the world {world}")
+        self.desc = desc
+        self.device_mesh = init_device_mesh(
+            device_type, desc.shape, mesh_dim_names=desc.axis_names)
+        self._coord = dict(zip(desc.axis_names,
+                               self.device_mesh.get_coordinate()))
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.desc.axis_names
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return self.desc.axis_sizes
+
+    def coordinate(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)

@@ -1,0 +1,545 @@
+"""Ranks of the expert-parallel branch: each rank's block of a case, and
+the worker that runs a case's steps across ranks.
+
+How a rank holds a ``launch/specs.build_case`` case under
+``tp_rules(expert_parallel=True, ...)`` with a ``ProcessMesh``:
+
+* the batch tensors (tokens, lengths, caches, images, frames) are cut
+  over the batch axes only: a rank holds its rows, the same rows on
+  every rank of one expert line;
+* the expert weights ``wi``, ``wg``, ``wo`` and their AdamW moments are
+  cut by their specs where the branch runs (``moe.expert_parallel``):
+  this rank's E / ep experts, and under the fsdp rules its d / z slice
+  along ``embed`` (``moe.zero_gathered``);
+* every other tensor is whole on every rank.
+
+``rank_block`` cuts whole arguments or outputs to a rank's block and
+``gather_blocks`` puts the blocks back together (for tests: copies that
+ranks hold alike must be equal). ``run_ranks`` starts one process a rank
+(``torch.multiprocessing`` spawn), joins each to the process group
+through a ``file://`` store in a directory of the caller's and to the
+mesh, runs the jobs it is given and hands back each rank's results on
+the CPU. The jobs: ``run_plan_rank`` draws only this rank's block of
+the parameters (``init_params``' cut, layer by layer), builds the case
+with the process mesh in its rules and runs its steps; ``run_moe_rank``
+runs one ``moe_block`` with its gradient. ``run_plan`` is the same plan
+in one process: the reference the ranks are held to.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import math
+import os
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import collectives, distributed
+from repro_torch.launch.mesh import MeshDesc, ProcessMesh
+from repro_torch.launch.specs import build_case
+from repro_torch.models import moe as MOE
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import (ParamSpec, flatten, init_params,
+                                       moe_spec, param_structure)
+from repro_torch.models.partitioning import P, ShardingRules, tp_rules, \
+    use_rules
+from repro_torch.models.transformer import clone_caches, make_caches
+from repro_torch.training.optimizer import AdamW
+
+# the role of each argument of a case, and of each output of its step
+ARG_ROLES = {"prefill": ("params", "batch", "batch", "batch", "batch",
+                         "batch"),
+             "decode": ("params", "batch", "batch"),
+             "train": ("params", "opt", "batch")}
+OUT_ROLES = {"prefill": ("batch", "batch"), "decode": ("batch", "batch"),
+             "train": ("params", "opt", "whole")}
+SEED = 0
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def coordinates(desc: MeshDesc, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s position on each axis of the mesh, row-major (the
+    order in which ``init_device_mesh`` and ``jax.make_mesh`` lay ranks)."""
+    out = {}
+    for name, n in reversed(tuple(zip(desc.axis_names, desc.shape))):
+        out[name] = rank % n
+        rank //= n
+    return out
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(shape, entries, sizes: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that the rank at ``coords``
+    holds when dim i is cut over the mesh axes of ``entries[i]`` (row-
+    major over several axes); a dim those axes do not divide stays
+    whole."""
+    idx = []
+    for dim, entry in zip(shape, tuple(entries) + (None,) * len(shape)):
+        axes = _axes(entry)
+        n = math.prod(sizes[a] for a in axes)
+        if n == 1 or dim % n:
+            idx.append(slice(None))
+            continue
+        pos = 0
+        for a in axes:
+            pos = pos * sizes[a] + coords[a]
+        step = dim // n
+        idx.append(slice(pos * step, (pos + 1) * step))
+    return tuple(idx)
+
+
+def expert_entries(spec: ParamSpec, rules: ShardingRules):
+    """Mesh axes each dim of a parameter leaf is cut over, or None when
+    the leaf is whole on every rank: only the expert weights are cut, and
+    only where the branch runs."""
+    if "expert" not in spec.axes:
+        return None
+    n_exp = spec.shape[spec.axes.index("expert")]
+    if not MOE.expert_parallel(rules, n_exp):
+        return None
+    d = spec.shape[spec.axes.index("embed")]
+    out = []
+    for a in spec.axes:
+        if a == "expert":
+            out.append(rules.rules["expert"])
+        elif a == "embed" and MOE.zero_gathered(rules, d):
+            out.append(rules.rules["embed"])
+        else:
+            out.append(None)
+    return out
+
+
+def param_cut(rules: ShardingRules, coords: Dict[str, int]):
+    """``init_params``' cut: this rank's block of each expert leaf."""
+    def cut(spec: ParamSpec):
+        entries = expert_entries(spec, rules)
+        if entries is None:
+            return None
+        return block_index(spec.shape, entries, rules.axis_sizes, coords)
+    return cut
+
+
+def _batch_entries(spec, rules: ShardingRules):
+    """The entries of a batch tensor's spec that name only batch axes."""
+    batch = set(_axes(rules.rules.get("batch")))
+    return [e if e is not None and set(_axes(e)) <= batch else None
+            for e in tuple(spec or ())]
+
+
+def _walk(fn, spec, tree):
+    """``tree`` with each tensor t replaced by fn(its spec, t), visited in
+    ``flatten``'s order (dict keys sorted; the dicts keep their order);
+    the spec tree may stop early (a missing spec is None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(spec, tree)
+    if isinstance(tree, dict):
+        got = {k: _walk(fn, spec.get(k) if isinstance(spec, dict) else None,
+                        tree[k]) for k in sorted(tree)}
+        return {k: got[k] for k in tree}
+    specs = (spec if isinstance(spec, (tuple, list))
+             and not isinstance(spec, P) else (None,) * len(tree))
+    items = [_walk(fn, s, t) for s, t in zip(specs, tree)]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*items)
+    return type(tree)(items)
+
+
+def _leaf_entries(cfg: ModelConfig, role: str, spec, tree, rules,
+                  structure=None):
+    """(entries or None) of each tensor of ``tree`` in ``flatten``'s
+    order, for one role."""
+    if role == "whole":
+        return [None] * len(flatten(tree))
+    if role == "params":
+        structure = structure or param_structure(cfg)
+        return [expert_entries(s, rules) for s in flatten(structure)]
+    if role == "opt":
+        per = _leaf_entries(cfg, "params", None, None, rules, structure)
+        return [None] + per + per
+    got = []
+    _walk(lambda s, t: got.append(_batch_entries(s, rules)), spec, tree)
+    return got
+
+
+def _tensors_of(tree) -> List[torch.Tensor]:
+    got = []
+    _walk(lambda s, t: got.append(t), None, tree)
+    return got
+
+
+def _rebuild(tree, new: Sequence[torch.Tensor]):
+    it = iter(new)
+    return _walk(lambda s, t: next(it), None, tree)
+
+
+def rank_block(cfg: ModelConfig, roles: Sequence[str], specs, trees,
+               rules: ShardingRules, coords: Dict[str, int],
+               structure=None) -> tuple:
+    """This rank's block of each of ``trees`` (whole tensors), cut by its
+    role (``ARG_ROLES`` / ``OUT_ROLES``; ``specs`` the case's in_specs, or
+    the step's output specs from ``out_specs``). ``structure``: the
+    ParamSpec tree of a "params" role when it is not the whole model's
+    (one MoE layer, say). A None tree stays None."""
+    out = []
+    for role, spec, tree in zip(roles, specs, trees):
+        if tree is None:
+            out.append(None)
+            continue
+        ents = _leaf_entries(cfg, role, spec, tree, rules, structure)
+        ts = _tensors_of(tree)
+        if len(ents) != len(ts):
+            raise ValueError(f"rank_block: a {role} tree of {len(ts)} "
+                             f"tensors, {len(ents)} expected")
+        out.append(_rebuild(tree, [
+            t if e is None else
+            t[block_index(t.shape, e, rules.axis_sizes, coords)].clone()
+            for e, t in zip(ents, ts)]))
+    return tuple(out)
+
+
+def gather_blocks(cfg: ModelConfig, roles: Sequence[str], specs,
+                  blocks_by_rank: Sequence[tuple], like,
+                  rules: ShardingRules, desc: MeshDesc,
+                  structure=None) -> tuple:
+    """The inverse of ``rank_block``: each rank's blocks (rank order)
+    put together into whole trees shaped as ``like`` (whole trees or
+    ``meta`` tensors of the whole shapes). Ranks that hold the same block
+    must hold equal values (bitwise); else this raises."""
+    out = []
+    for i, (role, spec, tree) in enumerate(zip(roles, specs, like)):
+        if tree is None:
+            out.append(None)
+            continue
+        ents = _leaf_entries(cfg, role, spec, tree, rules, structure)
+        whole = _tensors_of(tree)
+        per_rank = [_tensors_of(b[i]) for b in blocks_by_rank]
+        new = []
+        for j, (e, w) in enumerate(zip(ents, whole)):
+            first = per_rank[0][j]
+            t = torch.empty(w.shape, dtype=first.dtype)
+            held = {}
+            for r, ts in enumerate(per_rank):
+                idx = block_index(w.shape, e or (), rules.axis_sizes,
+                                  coordinates(desc, r))
+                key = tuple((s.start, s.stop) for s in idx)
+                if key in held:
+                    if not torch.equal(held[key], ts[j]):
+                        raise AssertionError(
+                            f"gather_blocks: rank {r} holds another value "
+                            f"of a block it shares ({role}, leaf {j}, "
+                            f"{tuple(w.shape)})")
+                    continue
+                held[key] = ts[j]
+                t[idx] = ts[j]
+            new.append(t)
+        out.append(_rebuild(tree, new))
+    return tuple(out)
+
+
+def out_specs(kind: str, case, rules: ShardingRules) -> tuple:
+    """The specs of a step's outputs, in ``OUT_ROLES``' order."""
+    if kind == "train":
+        return (None, None, None)
+    cache_spec = case.in_specs[3] if kind == "prefill" else case.in_specs[2]
+    return (rules.spec(("batch", None)), cache_spec)
+
+
+# ---------------------------------------------------------------------------
+# a plan of steps, in one process or on each rank
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A case's steps on one configuration: a prefill of ``prefill``
+    (batch, padded length, true lengths), then optionally a decode step
+    over the caches it filled, and a train step of ``train`` (batch,
+    length). Parameters are drawn from seed ``SEED`` on the device,
+    inputs from ``SEED`` + 1 on the CPU."""
+    arch: str
+    reduced: bool = True
+    layers: Optional[int] = None
+    dtype: str = "float32"
+    fsdp: bool = False
+    prefill: Optional[Tuple[int, int, Tuple[int, ...]]] = None
+    decode: bool = False
+    train: Optional[Tuple[int, int]] = None
+    # hand back the caches, new parameters and AdamW state as ``digest``s
+    # (the logits and metrics whole): what a full-size run can return
+    digest: bool = False
+    # run each step once first on copies of what it writes, so that the
+    # counted, timed run is warm
+    warm: bool = False
+
+
+def plan_config(plan: Plan) -> ModelConfig:
+    cfg = get_config(plan.arch)
+    if plan.reduced:
+        cfg = cfg.reduced()
+    if plan.layers:
+        cfg = dataclasses.replace(cfg, n_layers=plan.layers,
+                                  name=f"{cfg.name}-{plan.layers}layer")
+    return cfg
+
+
+def plan_rules(plan: Plan, desc: MeshDesc, mesh=None) -> ShardingRules:
+    """Expert-parallel rules at the mesh's sizes; ``mesh`` None gives the
+    one-process run of the same plan (the same ``train_plan``)."""
+    return tp_rules(expert_parallel=True, fsdp=plan.fsdp,
+                    axis_sizes=desc.axis_sizes, mesh=mesh)
+
+
+def _ints(gen, high, shape):
+    return torch.randint(0, high, shape, generator=gen, dtype=torch.int32)
+
+
+def _normal(gen, shape, dtype):
+    return torch.randn(shape, generator=gen).to(dtype)
+
+
+def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
+          device, coords: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """Run the plan's steps through ``build_case``'s step functions.
+    ``params`` are whole in one process (``coords`` None), or this rank's
+    block; the inputs are made whole and cut to the rank's rows. Per
+    step: its outputs, the kernel launches and the collectives (counts
+    set to 0 just before the step, read just after), and its seconds
+    (after a warm-up on copies where ``plan.warm``)."""
+    dt = getattr(torch, plan.dtype)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    res: Dict[str, Any] = {}
+
+    def step(kind, case, args, cut=()):
+        """Run one step; on a rank, first cut ``args[i]`` for i in
+        ``cut`` (whole batch tensors) to this rank's rows."""
+        if coords is not None and cut:
+            mine = rank_block(cfg, ("batch",) * len(cut),
+                              [case.in_specs[i] for i in cut],
+                              [args[i] for i in cut], rules, coords)
+            args = list(args)
+            for i, t in zip(cut, mine):
+                args[i] = t
+        if plan.warm:
+            at = {"prefill": 3, "decode": 2}.get(kind)
+            case.fn(*(clone_caches(a) if i == at else a
+                      for i, a in enumerate(args)))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ops.reset_launch_counts()
+        collectives.reset()
+        t0 = time.perf_counter()
+        out = case.fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+        kept = out
+        if plan.digest:
+            kept = ((out[0], digest(out[1])) if kind != "train" else
+                    (digest(out[0]), digest(out[1]), out[2]))
+        res[kind] = dict(out=kept, s=secs,
+                         launches=ops.launch_counts(),
+                         collectives=collectives.collective_bytes(),
+                         calls=collectives.collective_calls())
+        return out
+
+    def to(t):
+        return None if t is None else t.to(device)
+
+    if plan.prefill is not None:
+        b, s, lengths = plan.prefill
+        case = build_case(cfg, InputShape("prefill", s, b, "prefill"), rules)
+        toks = _ints(gen, cfg.vocab, case.args[1].shape)
+        mm, enc = case.args[4], case.args[5]
+        mm = None if mm is None else _normal(gen, mm.shape, dt)
+        enc = None if enc is None else _normal(gen, enc.shape, dt)
+        caches = make_caches(cfg, b, s, dtype=dt, device=device)
+        _, caches = step("prefill", case, (
+            params, to(toks), torch.tensor(lengths, dtype=torch.int32,
+                                           device=device),
+            caches, to(mm), to(enc)), cut=(1, 2, 3, 4, 5))
+        if plan.decode:
+            # over the caches the prefill filled (this rank's rows already)
+            case = build_case(cfg, InputShape("decode", s, b, "decode"),
+                              rules)
+            step("decode", case, (params, to(_ints(gen, cfg.vocab, (b,))),
+                                  caches), cut=(1,))
+    if plan.train is not None:
+        b, s = plan.train
+        case = build_case(cfg, InputShape("train", s, b, "train"), rules)
+        batch = {k: to(_ints(gen, cfg.vocab, t.shape)
+                       if t.dtype == torch.int32 else
+                       _normal(gen, t.shape, dt))
+                 for k, t in case.args[2].items()}
+        step("train", case, (params, AdamW().init(params), batch), cut=(2,))
+    return res
+
+
+def digest(tree) -> torch.Tensor:
+    """(n, 2) float64 on the CPU: the sum and the sum of squares of each
+    tensor of ``tree``, in ``flatten``'s order."""
+    rows = [torch.stack([t.double().sum(), t.double().square().sum()])
+            for t in _tensors_of(tree)]
+    return torch.stack(rows).cpu()
+
+
+def run_plan(plan: Plan, desc: MeshDesc, device) -> Dict[str, Any]:
+    """The plan in one process, with whole parameters, under the rules of
+    the mesh's sizes with no mesh: the reference the ranks are held to."""
+    device = torch.device(device)
+    cfg = plan_config(plan)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device=device, dtype=getattr(torch, plan.dtype))
+    return drive(cfg, plan, params, plan_rules(plan, desc), device)
+
+
+def run_plan_rank(mesh: ProcessMesh, device, plan: Plan) -> Dict[str, Any]:
+    """The plan on this rank: only its block of the parameters is drawn
+    (``init_params``' cut, so the values are the whole tree's), the case
+    built with the process mesh in its rules."""
+    cfg = plan_config(plan)
+    rules = plan_rules(plan, mesh.desc, mesh)
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device=device, dtype=getattr(torch, plan.dtype),
+        cut=param_cut(rules, coords))
+    res = drive(cfg, plan, params, rules, device, coords)
+    del params
+    return res
+
+
+def moe_loss(p, x, cfg: ModelConfig):
+    """``moe_block`` on x with the loss sum(y ** 2) + aux, and the kept
+    selections (B, S, k) in token order."""
+    y, aux = MOE.moe_block(p, x, cfg)
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    _, _, eidx = MOE.route(p, h, cfg)
+    sort_idx, _, pos, _, _ = MOE.dispatch(eidx, cfg.moe.n_experts)
+    keep = torch.zeros_like(pos, dtype=torch.bool).scatter_(
+        1, sort_idx, pos < MOE.capacity(cfg, x.shape[1]))
+    return y, aux, keep.reshape(eidx.shape), torch.sum(y ** 2) + aux
+
+
+def run_moe_rank(mesh: ProcessMesh, device, cfg: ModelConfig, p, x,
+                 fsdp: bool) -> Dict[str, Any]:
+    """One ``moe_block`` on this rank: ``p`` (one layer's whole MoE
+    parameters) and ``x`` (B, S, d) whole, cut here to this rank's block
+    and rows; the gradient of this rank's loss, sum(y ** 2) + aux, with
+    respect to x and every parameter it holds. The global loss is the
+    sum of the data ranks' losses."""
+    rules = tp_rules(expert_parallel=True, fsdp=fsdp,
+                     axis_sizes=mesh.axis_sizes, mesh=mesh)
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    mine, xb = rank_block(cfg, ("params", "batch"),
+                          (None, rules.spec(("batch", None, None))),
+                          (p, x), rules, coords, structure=moe_spec(cfg))
+    mine = {k: t.to(device).requires_grad_(True) for k, t in mine.items()}
+    xb = xb.to(device).requires_grad_(True)
+    collectives.reset()
+    with use_rules(rules):
+        y, aux, keep, loss = moe_loss(mine, xb, cfg)
+    forward = collectives.collective_bytes()
+    names = sorted(mine)
+    grads = torch.autograd.grad(loss, [xb] + [mine[k] for k in names])
+    return dict(y=y.detach(), aux=aux.detach(), keep=keep, x=xb.detach(),
+                grad_x=grads[0], grads=dict(zip(names, grads[1:])),
+                held={k: t.detach() for k, t in mine.items()},
+                forward=forward, total=collectives.collective_bytes(),
+                calls=collectives.collective_calls())
+
+
+JOBS = {"plan": run_plan_rank, "moe": run_moe_rank}
+
+
+def to_cpu(tree):
+    """A copy of a tree of tensors (dicts, lists, tuples) on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [to_cpu(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    return tree
+
+
+def _rank_main(rank: int, world: int, run_dir: str, backend: str,
+               device: str, desc: MeshDesc) -> None:
+    """One rank: join the group and the mesh, run the jobs of
+    ``run_dir/jobs.pt``, save the results to ``run_dir/rank<r>.pt``."""
+    run = Path(run_dir)
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        dev = distributed.init_process_group(
+            backend, rank, world, f"file://{run / 'store'}", device)
+        mesh = ProcessMesh(desc, dev.type)
+        jobs = torch.load(run / "jobs.pt", weights_only=False)
+        out = []
+        for name, kw in jobs:
+            out.append(to_cpu(JOBS[name](mesh, dev, **kw)))
+            if dev.type == "cuda":
+                # what this job held goes back to the card, which the
+                # other ranks may share
+                gc.collect()
+                torch.cuda.empty_cache()
+        torch.save(out, run / f"rank{rank}.pt")
+    except BaseException:
+        (run / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        distributed.shutdown()
+
+
+def run_ranks(desc: MeshDesc, jobs: Sequence[Tuple[str, dict]], *,
+              backend: str, device: str, run_dir, timeout: float) -> list:
+    """Run ``jobs`` ((name in ``JOBS``, keyword arguments) each, in order)
+    on one process a rank of ``desc`` (spawned; rank r at ``coordinates
+    (desc, r)``), joined over ``backend`` through a ``file://`` store in
+    ``run_dir`` (empty, the caller's own). Returns each rank's list of
+    results, on the CPU. A rank that fails or does not finish within
+    ``timeout`` seconds stops the others and raises here."""
+    import torch.multiprocessing as mp
+    run = Path(run_dir)
+    run.mkdir(parents=True, exist_ok=True)
+    torch.save(list(jobs), run / "jobs.pt")
+    world = desc.size
+    ctx = mp.start_processes(_rank_main, args=(world, str(run), backend,
+                                               device, desc),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"run_ranks: {world} ranks did not finish in "
+                    f"{timeout} s")
+    except BaseException as e:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        for proc in ctx.processes:
+            proc.join(10)
+        errs = "".join(f.read_text() for f in sorted(run.glob("rank*.err")))
+        if errs:
+            raise RuntimeError(f"run_ranks: a rank failed:\n{errs}") from e
+        raise
+    return [torch.load(run / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]

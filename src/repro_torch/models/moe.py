@@ -15,12 +15,18 @@ owns it), and the combine puts the slots back in token order (a scatter
 of a permutation) and adds each token's k contributions in a fixed
 order: no atomics, so a replay is bitwise equal to the eager step.
 
-Of the reference's three sharding modes (see partitioning.tp_rules) the
-port runs MoE-TP and the expert-sharded SPMD mode, whose constraints go
-through ``shard``. The explicit expert-parallel ``shard_map`` branch
-(``rules.mesh`` set and the expert axis split) is not ported yet:
-``moe_block`` raises there (ROADMAP.md Queue 1, the expert-parallel
-item).
+The reference's three sharding modes (see partitioning.tp_rules):
+
+* MoE-TP and the expert-sharded SPMD mode run the experts here in one
+  process, their constraints going through ``shard``;
+* the explicit expert-parallel branch (``rules.mesh`` set and the expert
+  axis split, the reference's ``shard_map``) runs across ranks over
+  ``torch.distributed``: ``rules.mesh`` is then a ``launch/mesh.py``
+  ``ProcessMesh``, each rank holds its batch rows (the same on every
+  rank of one expert line) and only its E / ep experts of ``wi``, ``wg``
+  and ``wo`` (under the fsdp rules also only its d / z slice along
+  ``embed``), and computes only those experts; its collectives go
+  through ``launch/collectives.py``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.partitioning import current_rules, shard
 
@@ -110,20 +117,15 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # ---- expert computation (gated MLP), one batched product an expert ----
     rules = current_rules()
-    if rules is not None and rules.mesh is not None \
-            and rules.size("expert") > 1 and E % rules.size("expert") == 0:
-        raise NotImplementedError(
-            "moe_block: the explicit expert-parallel branch (rules.mesh set, "
-            f"the expert axis split {rules.size('expert')} ways) is not "
-            "ported yet (ROADMAP.md Queue 1, the expert-parallel shard_map "
-            "branch over torch.distributed); build the rules with mesh=None "
-            "for the expert-sharded SPMD mode")
-    ebuf = shard(ebuf, "batch", "act_expert", None, None)
-    up = torch.einsum("becd,edf->becf", ebuf, p["wi"])
-    gate = torch.einsum("becd,edf->becf", ebuf, p["wg"])
-    act = shard(F.silu(gate) * up, "batch", "act_expert", None, "act_ff")
-    out = torch.einsum("becf,efd->becd", act, p["wo"])
-    out = shard(out, "batch", "act_expert", None, None)
+    if expert_parallel(rules, E):
+        out = _expert_ffn_expert_parallel(p, ebuf, rules)
+    else:
+        ebuf = shard(ebuf, "batch", "act_expert", None, None)
+        up = torch.einsum("becd,edf->becf", ebuf, p["wi"])
+        gate = torch.einsum("becd,edf->becf", ebuf, p["wg"])
+        act = shard(F.silu(gate) * up, "batch", "act_expert", None, "act_ff")
+        out = torch.einsum("becf,efd->becd", act, p["wo"])
+        out = shard(out, "batch", "act_expert", None, None)
 
     # ---- combine: each selection, in token order (t * k + j), reads its
     # slot's output (the zero row E*C when it was dropped) weighted by its
@@ -141,3 +143,66 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
         y = y + got[:, :, j]
     y = shard(y, "batch", None, "act_embed")
     return x + y, aux
+
+
+# ---------------------------------------------------------------------------
+# Explicit expert parallelism across ranks
+# ---------------------------------------------------------------------------
+
+def expert_parallel(rules, n_experts: int) -> bool:
+    """The reference's condition for its ``shard_map`` branch: a mesh in
+    the rules, and the expert axis split a number of ways that divides
+    the experts."""
+    return (rules is not None and rules.mesh is not None
+            and rules.size("expert") > 1
+            and n_experts % rules.size("expert") == 0)
+
+
+def zero_gathered(rules, d_model: int) -> bool:
+    """Whether the branch gathers the expert weights along ``embed`` (the
+    reference's ``gather_d``): the rules map ``embed`` to a mesh axis
+    whose size divides d."""
+    axis = rules.rules.get("embed")
+    return axis is not None and d_model % rules.axis_sizes.get(axis, 1) == 0
+
+
+def _expert_ffn_expert_parallel(p, ebuf, rules):
+    """The reference's ``_expert_ffn_shard_map`` across ranks.
+
+    ebuf: (B_loc, E, C, d), this rank's batch rows, the same on every
+    rank along the expert axis; p["wi"], p["wg"]: (E / ep, d / z, f),
+    p["wo"]: (E / ep, f, d / z) (z = 1 unless ``zero_gathered``). The
+    ZeRO shards are all-gathered over the ``embed`` axis, each rank runs
+    its own experts on its slice of the buffers, and the outputs are
+    all-gathered over the expert axis into (B_loc, E, C, d)."""
+    mesh = rules.mesh
+    if not hasattr(mesh, "group"):
+        raise TypeError(
+            f"moe_block: the expert-parallel branch runs across live ranks: "
+            f"rules.mesh must be a launch.mesh.ProcessMesh, got "
+            f"{type(mesh).__name__}; a mesh description belongs in "
+            f"axis_sizes, with mesh=None (the expert-sharded SPMD mode)")
+    expert_axis = rules.rules.get("expert")
+    zero_axis = rules.rules.get("embed")
+    E, d = ebuf.shape[1], ebuf.shape[3]
+    ep = rules.size("expert")
+    gather_d = zero_gathered(rules, d)
+    z = rules.axis_sizes.get(zero_axis, 1) if gather_d else 1
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    held = (E // ep, d // z)
+    if wi.shape[:2] != held or wg.shape[:2] != held or \
+            wo.shape[0::2] != held:
+        raise ValueError(
+            f"moe_block: this rank holds wi {tuple(wi.shape)}, wo "
+            f"{tuple(wo.shape)}; the branch takes its {E // ep} of {E} "
+            f"experts and d / {z} = {d // z} along embed (launch/ranks.py "
+            f"cuts a rank's block)")
+    if gather_d:
+        wi = collectives.gather_zero(wi, mesh, zero_axis, dim=1)
+        wg = collectives.gather_zero(wg, mesh, zero_axis, dim=1)
+        wo = collectives.gather_zero(wo, mesh, zero_axis, dim=2)
+    eb = collectives.take_slice(ebuf, mesh, expert_axis, dim=1)
+    up = torch.einsum("becd,edf->becf", eb, wi)
+    gate = torch.einsum("becd,edf->becf", eb, wg)
+    out = torch.einsum("becf,efd->becd", F.silu(gate) * up, wo)
+    return collectives.gather_replicated(out, mesh, expert_axis, dim=1)

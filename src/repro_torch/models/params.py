@@ -204,7 +204,9 @@ def param_pspecs(cfg: ModelConfig, rules: Optional[ShardingRules]):
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+                device="cuda", dtype=torch.float32,
+                cut: Optional[Callable[[ParamSpec], Optional[tuple]]] = None
+                ) -> Dict[str, Any]:
     """Materialise random parameter values on ``device``.
 
     Same distributions as the reference (normal with std 1/sqrt(fan_in),
@@ -214,6 +216,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     reference's parameters with ``repro_torch.convert``. Stacked leaves
     are drawn one layer at a time so the f32 draw of a full-width model
     never holds more than one layer's temporary.
+
+    cut: maps a leaf's spec to the index of the block to keep (a tuple of
+    slices over its dims), or None to keep it whole. Every leaf is still
+    drawn in full, layer by layer, so a block holds the values of the
+    whole tree's block (``launch/ranks.py``: a rank keeps only its
+    experts).
     """
     dev = resolve_device(device)
     if generator is None:
@@ -225,22 +233,36 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                             dtype=torch.float32) * std).to(dtype)
 
     def mk(spec: ParamSpec):
+        idx = cut(spec) if cut is not None else None
+
+        def keep(t):
+            return t if idx is None else t[idx].clone()
+
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=dev)
+            return keep(torch.zeros(spec.shape, dtype=dtype, device=dev))
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=dev)
+            return keep(torch.ones(spec.shape, dtype=dtype, device=dev))
         if spec.init == "ssm_a":
             u = torch.rand(spec.shape, generator=generator, device=dev,
                            dtype=torch.float32) * (math.e - 1.0) + 1.0
-            return torch.log(u).to(dtype)
+            return keep(torch.log(u).to(dtype))
         shape = spec.shape
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         if spec.axes[0] == "layers" and len(shape) >= 3:
-            out = torch.empty(shape, dtype=dtype, device=dev)
+            if idx is None:
+                out = torch.empty(shape, dtype=dtype, device=dev)
+                for i in range(shape[0]):
+                    out[i] = draw(shape[1:], fan_in)
+                return out
+            rows = range(shape[0])[idx[0]]
+            out = torch.empty(torch.empty(shape, device="meta")[idx].shape,
+                              dtype=dtype, device=dev)
             for i in range(shape[0]):
-                out[i] = draw(shape[1:], fan_in)
+                layer = draw(shape[1:], fan_in)    # every layer: one stream
+                if i in rows:
+                    out[rows.index(i)] = layer[idx[1:]]
             return out
-        return draw(shape, fan_in)
+        return keep(draw(shape, fan_in))
 
     return map_tree(mk, param_structure(cfg))
 

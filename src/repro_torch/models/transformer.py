@@ -21,7 +21,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.partitioning import logical_to_pspec, shard
+from repro_torch.models.partitioning import (current_rules,
+                                             logical_to_pspec, shard,
+                                             use_rules)
 
 
 # ---------------------------------------------------------------------------
@@ -338,11 +340,20 @@ def run_decoder(params, cfg: ModelConfig, x, positions, *,
                 aux = aux + a
         return h, aux
 
+    rules = current_rules()
+
+    def recompute(h, aux, r):
+        # the backward may recompute on another thread (autograd's device
+        # thread on CUDA), where the thread-local rules are unset: the
+        # expert-parallel branch must be taken there too
+        with use_rules(rules):
+            return repeat(h, aux, r)
+
     h = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_repeats):
         if remat:
-            h, aux = checkpoint(repeat, h, aux, r, use_reentrant=False)
+            h, aux = checkpoint(recompute, h, aux, r, use_reentrant=False)
         else:
             h, aux = repeat(h, aux, r)
 

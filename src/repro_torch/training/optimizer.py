@@ -43,11 +43,16 @@ class AdamW(NamedTuple):
         warm = torch.clamp((step + 1) / self.warmup_steps, max=1.0)
         return self.lr * warm
 
-    def update(self, grads, state: AdamWState, params
-               ) -> Tuple[Any, AdamWState]:
+    def update(self, grads, state: AdamWState, params, *,
+               sq_norm=None) -> Tuple[Any, AdamWState]:
+        """sq_norm: the gradients' squared global norm, where the caller
+        holds only a block of some leaves and has summed across ranks
+        (``training/train.py``); None sums this tree's leaves."""
         # global-norm clip
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in flatten(grads)))
+        if sq_norm is None:
+            sq_norm = sum(torch.sum(torch.square(g.float()))
+                          for g in flatten(grads))
+        gnorm = torch.sqrt(sq_norm)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         grads = map_tree(lambda g: g.float() * scale, grads)
 

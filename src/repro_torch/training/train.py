@@ -15,9 +15,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models import partitioning
 from repro_torch.models.model import train_forward
-from repro_torch.models.params import leaves, map_tree
+from repro_torch.models.params import flatten, leaves, map_tree, \
+    param_structure
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 
@@ -57,6 +59,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
         return metrics, map_tree(lambda _: next(it), params)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
+        mesh = _process_mesh()
         if num_microbatches <= 1:
             metrics, grads = value_and_grad(params, batch)
         else:
@@ -78,10 +81,52 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
                 a_sum = a_sum + m["aux"]
             grads = map_tree(lambda g: g / n, g_sum)
             metrics = {"loss": l_sum / n, "aux": a_sum / n}
-        new_params, new_state = opt.update(grads, opt_state, params)
+        if mesh is None:
+            new_params, new_state = opt.update(grads, opt_state, params)
+        else:
+            new_params, new_state = opt.update(
+                grads, opt_state, params, sq_norm=_sq_norm(cfg, grads, mesh))
         return new_params, new_state, dict(metrics)
 
     return train_step
+
+
+def _process_mesh():
+    """The live process mesh of the current rules, or None in one process.
+
+    Across ranks the step runs at 1 x ep only: every rank holds the same
+    rows and computes the same loss, and the expert-parallel branch's
+    exchanges leave each rank the whole gradient of every leaf it holds
+    (``launch/collectives.py``). Over data ranks the gradients of the
+    leaves they share would have to be summed, which nothing does yet."""
+    rules = partitioning.current_rules()
+    mesh = getattr(rules, "mesh", None)
+    if mesh is None or not hasattr(mesh, "group"):
+        return None
+    if rules.size("batch") > 1:
+        raise NotImplementedError(
+            f"train_step: the batch split {rules.size('batch')} ways over "
+            f"{rules.rules.get('batch')}: the data-parallel gradient "
+            f"reduction across ranks is not ported (ROADMAP.md Queue 1); "
+            f"run the step on a mesh of 1 x ep")
+    return mesh
+
+
+def _sq_norm(cfg: ModelConfig, grads, mesh) -> torch.Tensor:
+    """The squared global norm of gradients of which the expert leaves
+    are this rank's blocks (shapes below the whole tree's): their sum is
+    all-reduced over the expert axis, the whole leaves counted once."""
+    rules = partitioning.current_rules()
+    whole = [tuple(s.shape) for s in flatten(param_structure(cfg))]
+    own, shared = [], []
+    for shape, g in zip(whole, flatten(grads)):
+        (shared if tuple(g.shape) == shape else own).append(
+            torch.sum(torch.square(g.float())))
+    total = sum(shared)
+    if own:
+        total = total + collectives.all_reduce(sum(own), mesh,
+                                               rules.rules["expert"])
+    return total
 
 
 def train_loop(cfg: ModelConfig, params, batches, *,

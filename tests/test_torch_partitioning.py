@@ -11,8 +11,10 @@
   for prefill, decode and training forwards of five reduced configs.
   Sets, since the reference traces a scanned layer body once and the
   port calls each layer.
-* ``moe_block``'s branch, ``shard`` without rules, the mesh descriptions
-  and ``distributed.ensure_initialized`` in one process.
+* ``moe_block``'s branch (the expert-parallel one refuses a mesh
+  description: it runs across live ranks, held in
+  ``test_torch_expert_parallel.py``), ``shard`` without rules, the mesh
+  descriptions and ``distributed.ensure_initialized`` in one process.
 """
 import numpy as np
 import pytest
@@ -216,9 +218,12 @@ def test_shard_without_rules_returns_the_tensor(monkeypatch):
 
 
 def test_moe_block_refuses_the_expert_parallel_branch():
-    """rules.mesh set and the expert axis split: the shard_map branch,
-    not ported yet, so moe_block raises instead of taking another one;
-    with mesh None it runs the expert-sharded SPMD mode."""
+    """rules.mesh set and the expert axis split: the explicit
+    expert-parallel branch, which runs across live ranks only
+    (``tests/test_torch_expert_parallel.py``): with a mesh description in
+    its place moe_block refuses it (TypeError) instead of taking another
+    branch; with mesh None it runs the expert-sharded SPMD mode, equal to
+    the block without rules."""
     cfg = get_config("mixtral-8x7b").reduced()
     jcfg = jax_get_config("mixtral-8x7b").reduced()
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
@@ -229,8 +234,8 @@ def test_moe_block_refuses_the_expert_parallel_branch():
     sizes = mesh.make_local_mesh().axis_sizes | {"model": 2}
     rules = PT.tp_rules(expert_parallel=True, axis_sizes=sizes,
                         mesh=mesh.make_local_mesh())
-    with PT.use_rules(rules), pytest.raises(NotImplementedError,
-                                            match="expert-parallel"):
+    with PT.use_rules(rules), pytest.raises(TypeError,
+                                            match="ProcessMesh"):
         MOE.moe_block(p, x, cfg)
     out, aux = MOE.moe_block(p, x, cfg)
     with PT.use_rules(PT.tp_rules(expert_parallel=True, axis_sizes=sizes)):

@@ -275,7 +275,10 @@ def test_port_imports_without_jax_or_reference():
         "        'repro_torch.launch.analytic',\n"
         "        'repro_torch.models.partitioning', 'repro_torch.launch.mesh',\n"
         "        'repro_torch.launch.distributed', 'repro_torch.launch.specs',\n"
-        "        'repro_torch.launch.dryrun'} <= set(names), names\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.collectives',\n"
+        "        'repro_torch.launch.ranks'} <= set(names), names\n"
+        "from repro_torch.launch.mesh import ProcessMesh\n"
+        "from repro_torch.launch.ranks import run_ranks, run_plan_rank\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

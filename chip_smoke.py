@@ -87,7 +87,8 @@ Phases (every failure raises and ends the run with a non-zero code):
   3d. the dry-run on the meta device (``launch/dryrun.run_case``), one
      case of each family on the 16x16 mesh: per-device argument GiB, the
      analytic compute and memory terms at H100 SXM constants, the
-     bottleneck, seconds a case;
+     collective term (glm4-9b's decode: rank 0's block counted on meta;
+     null with its reason elsewhere), the bottleneck, seconds a case;
   3e. the expert-parallel branch of ``moe_block`` across ranks
      (``launch/ranks.py``): mixtral-8x7b at full width, 8 of 32 layers,
      bf16, on a process mesh of 1 x 2 (each rank 4 of the 8 experts,
@@ -101,6 +102,23 @@ Phases (every failure raises and ends the run with a non-zero code):
      and a train step at 1 x 2 on 1 layer (loss, per-leaf sums of
      squares of the new blocks); where 4 cards exist, all 32 layers at
      ep = 4 over NCCL, the ranks bitwise equal to each other;
+  3t. tensor parallelism across ranks (the baseline rules, ``tp_rules()``:
+     each rank its block of every leaf and cache, the collectives of the
+     reference's program at the same shard points): the case builders'
+     prefill 2 x 2048 and a decode step over its caches, full size, bf16;
+     on one card glm4-9b at 1 x 2, both ranks over gloo; where 4 cards
+     exist, over NCCL with a card a rank, glm4-9b at 1 x 2 and 1 x 4 (its
+     kv columns gathered, the decode cache cut over its sequence and
+     combined across ranks) and llava-next-mistral-7b at 1 x 4 and 2 x 2
+     (with image features). Held against one process in bf16 and in f32:
+     each rank's logits and cache blocks no farther from the f32 run than
+     one process's bf16 blocks are (TP_MAX_RATIO on the largest
+     difference, TP_MEAN_RATIO on the mean; the counts outside the bf16
+     rule printed), greedy tokens equal up to a reported bf16 tie, a flash a layer a prefill and a decode (or, over a
+     sequence-cut cache, a flash) a layer a decode step, and the
+     collective bytes of their closed form; warm seconds beside one
+     process's; glm4's decode step traced on rank 0 (one more step under
+     torch.profiler: device ms, busy share, top kernels);
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -259,6 +277,21 @@ EP_TRAIN = (1, 512)      # its train step: batch x length
 EP_TRAIN_LAYERS = 1
 EP_DIGEST_RTOL = 1e-2    # per-leaf sums of squares after the train step
 RANKS_TIMEOUT = 600      # seconds a group of ranks may take
+# phase 3t: tensor parallelism across ranks under the baseline rules, 3s's
+# prefill (batch, padded length, true lengths), then one decode step
+TP_PREFILL = (2, 2048, (2048, 1900))
+TP_ONE_CARD = (("glm4-9b", (1, 2)),)
+# a rank's distance from the f32 run against one process's, over the
+# logits and over the caches: the mean, and the largest difference (an
+# extreme over up to 1e8 values: up to 1.26 measured on an H100 80GB HBM3,
+# so the wider margin)
+TP_MAX_RATIO, TP_MEAN_RATIO = 1.5, 1.10
+TP_FOUR_CARDS = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)),
+                 ("llava-next-mistral-7b", (1, 4)),
+                 ("llava-next-mistral-7b", (2, 2)))
+# the ranks' decode step traced (rank 0's printed): the kv heads cut and
+# the cache cut over its sequence
+TP_TRACED = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)))
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -1903,13 +1936,18 @@ def meta_dryrun(smi):
         secs = time.perf_counter() - t0
         r = res["roofline"]
         assert res["outputs_match_donated"], res
+        coll = (f"null ({res['collective_reason']})"
+                if r["collective_s"] is None else
+                f"{r['collective_s'] * 1e3:.3f} ms for rank 0's "
+                f"{res['collective_bytes']} bytes at NVLink's "
+                f"{dryrun.NVLINK_BW / 1e9:.0f} GB/s")
         log(f"  {arch} x {shape} x 16x16 {kw or 'baseline'}: {secs:.1f} s; "
             f"args {res['memory']['argument_bytes'] / 2 ** 30:.2f} GiB/dev; "
             f"analytic compute {r['compute_s'] * 1e3:.3f} ms, memory "
             f"{r['memory_s'] * 1e3:.3f} ms (H100 SXM constants, "
             f"{dryrun.PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
             f"{dryrun.HBM_BW / 1e12:.2f} TB/s; this card: {smi}); "
-            f"collective null; bound {r['bottleneck']}")
+            f"collective {coll}; bound {r['bottleneck']}")
         out[f"{arch} {shape}"] = dict(res, s=secs)
     return out
 
@@ -1993,7 +2031,8 @@ def expert_parallel_ranks(torch, dev, smi):
     # -- the single-process reference ----------------------------------------
     t0 = time.perf_counter()
     ref = R.run_plan(serve, desc, dev)
-    ref = {k: dict(v, out=R.to_cpu(v["out"])) for k, v in ref.items()}
+    ref = {k: dict(ref[k], out=R.to_cpu(ref[k]["out"]))
+           for k in ("prefill", "decode")}
     out["reference_s"] = time.perf_counter() - t0
     release(torch)
     cfg_t = R.plan_config(train)
@@ -2091,7 +2130,9 @@ def expert_parallel_ranks(torch, dev, smi):
             f"{n['flash_attention']} flash, {n['flash_attention_bwd']} "
             f"flash_bwd; collectives {coll}")
     out["ranks"] = [{k: {"s": v["s"], "collectives": v["collectives"]}
-                     for k, v in {**res, **res_t}.items()}
+                     for k, v in (("prefill", res["prefill"]),
+                                  ("decode", res["decode"]),
+                                  ("train", res_t["train"]))}
                     for res, res_t in got]
     log(f"  [3e] backend {backend} ({n_cards} card(s)): ranks "
         f"{out['ranks_s']:.1f} s (spawn, parameters, steps); the single "
@@ -2139,6 +2180,223 @@ def expert_parallel_ranks(torch, dev, smi):
         f"a rank, NCCL over {desc4.size} cards: {out['full_s']:.1f} s; on "
         f"{smi}")
     release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3t: tensor parallelism across ranks
+# ---------------------------------------------------------------------------
+
+def _tp_bytes(cfg, mesh, b, s, text, combine) -> dict:
+    """The closed form of the collective result bytes a rank moves in one
+    step under the baseline rules at ``mesh`` (data, model), activations
+    in bf16: ``b`` rows in all, ``s`` tokens a row in the decoder, ``text``
+    of them looked up in the embedding. All-reduces (bf16): the embedding
+    where 'model' divides the vocabulary (one rank's row, exact), and
+    attention's and the MLP's wo where it divides q_dim and d_ff (the
+    partial products, as the reference sums them); all-gathers (bf16):
+    q's and k/v's columns where the columns are cut and the heads are
+    not; ``combine`` (a decode step over a dense cache cut over its
+    sequence): q's heads gathered where they are cut, and the f32
+    log-sum-exp maxima and weighted outputs all-reduced."""
+    m = mesh[1]
+    rows = b // mesh[0]
+    tokens = rows * s
+    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    ar = ag = 0
+    if cfg.vocab % m == 0:
+        ar += rows * text * d * 2
+    if nq * hd % m == 0:
+        ar += n * tokens * d * 2
+    if cfg.d_ff % m == 0:
+        ar += n * tokens * d * 2
+    if nq * hd % m == 0 and nq % m:
+        ag += n * tokens * nq * hd * 2
+    if nkv * hd % m == 0 and nkv % m:
+        ag += 2 * n * tokens * nkv * hd * 2
+    if combine:
+        if nq % m == 0:
+            ag += n * rows * nq * hd * 2
+        ar += n * rows * nq * (hd + 2) * 4
+    return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag)) if v}
+
+
+def _anchored(torch, got, want, truth):
+    """Held to the f32 run: ``got``'s distance from ``truth`` over all the
+    floating tensors of the trees (its largest and its mean) against
+    ``want``'s, within TP_MAX_RATIO and TP_MEAN_RATIO; integer tensors
+    equal. Returns (max |got - want|, elements outside the bf16 rule
+    against ``want``, the same count for ``want`` against ``truth``, the
+    max and mean ratios)."""
+    from repro_torch.models.params import flatten
+    err, outside, outside_want, n = 0.0, 0, 0, 0
+    top = [0.0, 0.0]          # largest distance from truth: got, want
+    total = [0.0, 0.0]        # summed distance from truth: got, want
+    for a, w, t in zip(flatten(got), flatten(want), flatten(truth)):
+        if a is None:
+            continue
+        assert a.shape == w.shape == t.shape and a.dtype == w.dtype
+        if not a.is_floating_point():
+            assert torch.equal(a, w) and torch.equal(a, t)
+            continue
+        a, w, t = a.float(), w.float(), t.float()
+        err = max(err, (a - w).abs().max().item())
+        outside += int((~torch.isclose(a, w, **TOL["bfloat16"])).sum())
+        outside_want += int((~torch.isclose(w, t, **TOL["bfloat16"])).sum())
+        for i, x in enumerate((a, w)):
+            d = (x - t).abs()
+            top[i] = max(top[i], d.max().item())
+            total[i] += d.double().sum().item()
+        n += a.numel()
+    r_max = top[0] / top[1] if top[1] else float(top[0] > 0) + 1.0
+    r_mean = total[0] / total[1] if total[1] else float(total[0] > 0) + 1.0
+    assert top[0] <= TP_MAX_RATIO * top[1], (top, n)
+    assert total[0] <= TP_MEAN_RATIO * total[1], (total, n)
+    return err, outside, outside_want, r_max, r_mean
+
+
+def _tp_run(torch, dev, arch, mesh, backend) -> dict:
+    """One model at one mesh for phase 3t: the single-process plan in bf16
+    and in f32 first (their outputs kept on the host, their card memory
+    freed), then the ranks. Each rank's logits and cache blocks are held
+    to the f32 run no farther than one process's bf16 blocks are
+    (``_anchored``): two bf16 runs whose sums are ordered otherwise part
+    by as much as either does from f32, beyond the bf16 rule at tens of
+    thousands of logits (``PERF.md`` §6). Returns the seconds and
+    counts."""
+    import shutil
+
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch.mesh import MeshDesc
+    from repro_torch.models.partitioning import kv_heads_cut
+    from repro_torch.models.transformer import cache_pspecs
+
+    desc = MeshDesc(mesh, ("data", "model"))
+    plan = R.Plan(arch, reduced=False, dtype="bfloat16",
+                  expert_parallel=False, prefill=TP_PREFILL, decode=1,
+                  warm=True)
+    ranked = dataclasses.replace(plan, trace=(arch, mesh) in TP_TRACED)
+    cfg = R.plan_config(plan)
+    b, s, _ = TP_PREFILL
+    n_mm = (min(cfg.frontend.tokens_per_item, s // 2)
+            if cfg.frontend is not None else 0)
+    tag = f"{arch} at {mesh[0]} x {mesh[1]}"
+    out = {"backend": backend}
+
+    def single(p):
+        res = R.run_plan(p, desc, dev)
+        res = {k: dict(res[k], out=R.to_cpu(res[k]["out"]))
+               for k in ("prefill", "decode")}
+        release(torch)
+        return res
+
+    t0 = time.perf_counter()
+    one = single(plan)
+    f32 = single(dataclasses.replace(plan, dtype="float32", warm=False))
+    out["one_process_s"] = time.perf_counter() - t0
+    run_dir = ROOT / "build" / f"ranks_3t_{mesh[0]}x{mesh[1]}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    got = [g[0] for g in R.run_ranks(desc, [("plan", dict(plan=ranked))],
+                                     backend=backend, device="cuda",
+                                     run_dir=run_dir, timeout=RANKS_TIMEOUT)]
+    out["ranks_s"] = time.perf_counter() - t0
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    rules = R.block_rules(plan, desc)
+    specs = (rules.spec(("batch", "act_vocab")), cache_pspecs(cfg, rules))
+    heads_cut = kv_heads_cut(rules, cfg.n_kv_heads)
+    decoder = "decode_attention" if heads_cut else "flash_attention"
+    for kind, seq, text, wrapper in (
+            ("prefill", s, s - n_mm, "flash_attention"),
+            ("decode", 1, 1, decoder)):
+        want, truth = one[kind]["out"], f32[kind]["out"]
+        bytes_want = _tp_bytes(cfg, mesh, b, seq, text,
+                               combine=kind == "decode" and not heads_cut)
+        for r, res in enumerate(got):
+            coords = R.coordinates(desc, r)
+            mine, exact = (R.rank_block(cfg, ("batch", "batch"), specs, t,
+                                        rules, coords) for t in (want, truth))
+            logits, caches = res[kind]["out"]
+            assert torch.isfinite(logits).all(), (tag, r, kind)
+            lg = _anchored(torch, logits, mine[0], exact[0])
+            ca = _anchored(torch, caches, mine[1], exact[1])
+            n = res[kind]["launches"]
+            assert n[wrapper] == cfg.n_layers, (tag, r, kind, n)
+            coll = res[kind]["collectives"]
+            assert coll == bytes_want, (tag, r, kind, coll, bytes_want)
+            log(f"  {tag}, rank {r} {kind}: {res[kind]['s']:.4f} s (one "
+                f"process {one[kind]['s']:.4f} s); logits block: max "
+                f"|rank - one process| {lg[0]:.3e}, outside the bf16 rule "
+                f"{lg[1]} of {logits.numel()} (one process against f32: "
+                f"{lg[2]}), distance from f32 max / mean {lg[3]:.3f} / "
+                f"{lg[4]:.3f} of one process's; cache block: max "
+                f"{ca[0]:.3e}, outside {ca[1]} (one process {ca[2]}), "
+                f"{ca[3]:.3f} / {ca[4]:.3f}; {n[wrapper]} {wrapper}; "
+                f"collectives {coll} = closed form, over "
+                f"{res[kind]['calls']} calls")
+        # the ranks' blocks put back together: greedy tokens against one
+        # process's, equal up to a reported bf16 tie
+        whole = R.gather_blocks(cfg, ("batch", "batch"), specs,
+                                [res[kind]["out"] for res in got], want,
+                                rules, desc)
+        parted = _greedy(torch, f"{tag} {kind}", whole[0], want[0])
+        log(f"  {tag} {kind}: greedy {whole[0].argmax(-1).tolist()} (f32 "
+            f"{truth[0].argmax(-1).tolist()}), parted from one process at "
+            f"{parted} rows")
+        if "trace" in got[0][kind]:
+            tr = got[0][kind]["trace"]
+            rest = tr["device_ms"] - tr["nccl_ms"]
+            log(f"  {tag} {kind}, rank 0 traced (torch.profiler, one more "
+                f"step on copies of the caches): wall {tr['wall_ms']:.3f} "
+                f"ms, device {tr['device_ms']:.3f} ms in {tr['launches']} "
+                f"kernel launches, of which NCCL's kernels (their waits for "
+                f"the other ranks included) {tr['nccl_ms']:.3f} ms; the "
+                f"other kernels {rest:.3f} ms, busy "
+                f"{rest / tr['wall_ms']:.3f}")
+            for ms, n, key in tr["top"]:
+                log(f"    {ms:9.3f} ms {n:5d}x  {key}")
+        out[kind] = {"one_process_s": one[kind]["s"],
+                     "rank_s": [res[kind]["s"] for res in got],
+                     "collectives": got[0][kind]["collectives"],
+                     "launches": {wrapper: got[0][kind]["launches"][wrapper]},
+                     "parted": parted}
+    return out
+
+
+def tensor_parallel_ranks(torch, dev, smi):
+    """Phase 3t: the baseline rules (``tp_rules()``: Megatron-style tensor
+    parallelism over 'model') run across ranks by the case builders'
+    prefill (TP_PREFILL, bf16, full size, seed 0) and a decode step over
+    its caches (``launch/ranks.py``), each rank holding its block of every
+    leaf and cache. On one card: glm4-9b at 1 x 2, both ranks on the card
+    over gloo. Where 4 cards exist, over NCCL with a card a rank: glm4-9b
+    at 1 x 2 and 1 x 4 (its 2 kv heads gathered, the decode cache cut over
+    its sequence), llava-next-mistral-7b (its image features through the
+    projector) at 1 x 4 and 2 x 2. Held on every rank against one process
+    of the same plan (``_tp_run``): its logits and cache blocks as near
+    the f32 run as one process's bf16 blocks, greedy tokens equal up to a
+    reported bf16 tie, one flash a layer a prefill and one decode (flash
+    where the cache is cut over its sequence) a layer a decode step, and
+    the collective bytes of the closed form (``_tp_bytes``). Each step
+    timed warm; the decode step of TP_TRACED traced on every rank after
+    its timed run (``ranks.trace_step``), rank 0's printed."""
+    n_cards = torch.cuda.device_count()
+    four = n_cards >= 4
+    backend = "nccl" if four else "gloo"
+    out = {"backend": backend, "cards": n_cards}
+    for arch, mesh in (TP_FOUR_CARDS if four else TP_ONE_CARD):
+        t0 = time.perf_counter()
+        out[f"{arch} {mesh[0]}x{mesh[1]}"] = _tp_run(torch, dev, arch, mesh,
+                                                     backend)
+        log(f"  [3t] {arch} at {mesh[0]} x {mesh[1]} over {backend}: "
+            f"{time.perf_counter() - t0:.1f} s; on {smi}")
+        release(torch)
+    if not four:
+        log(f"  [3t] the four-card part (NCCL: glm4-9b at 1 x 2 and 1 x 4, "
+            f"llava-next-mistral-7b at 1 x 4 and 2 x 2) did not run: "
+            f"{n_cards} card(s), 4 needed")
     return out
 
 
@@ -2818,7 +3076,7 @@ def trace_step(torch, step_fn, params, state, batch):
 
 
 ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "3s", "3d", "3e",
-              "4", "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7",
+              "3t", "4", "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7",
               "7t")
 
 
@@ -2946,6 +3204,14 @@ def main() -> int:
         expert_parallel_ranks(torch, dev, smi)
         new_s["3e"] = time.perf_counter() - t0
         log(f"[3e] {new_s['3e']:.1f} s")
+    if "3t" in phases:
+        log("[3t] tensor parallelism across ranks (the baseline rules): "
+            f"the case builders' prefill {TP_PREFILL[0]} x {TP_PREFILL[1]} "
+            f"and a decode step, full size, bf16, against one process")
+        t0 = time.perf_counter()
+        tensor_parallel_ranks(torch, dev, smi)
+        new_s["3t"] = time.perf_counter() - t0
+        log(f"[3t] {new_s['3t']:.1f} s")
 
     serve_stats = {}
     attn = ("flash_attention", "decode_attention", "paged_decode_attention")

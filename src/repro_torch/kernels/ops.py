@@ -47,6 +47,16 @@ def attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,
                                   causal=causal)
 
 
+def attention_with_lse(q, k, v, q_pos, kv_pos, *,
+                       window: Optional[int] = None):
+    """Causal attention (any number of queries, flash) and each query
+    row's log-sum-exp (b, nq, s) f32, +inf for a row without a valid key:
+    a decode step over a cache cut over its sequence combines the ranks'
+    partial results by it (``layers._decode_seq_cut``)."""
+    return _flash.flash_attention_with_lse(q, k, v, q_pos, kv_pos,
+                                           window=window)
+
+
 def paged_attention(q, k_pool, v_pool, block_tbl, lengths, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Single-token attention over a paged KV pool.

@@ -12,7 +12,10 @@ rank's; each process keeps its own.
 
 A collective over an axis of one rank moves nothing: it hands its input
 back and counts nothing. With no mesh nothing is called, so nothing is
-counted.
+counted. On the ``meta`` device a collective communicates nothing: it
+counts its kind and result bytes as a rank would and returns a ``meta``
+result of the right shape (the dry-run's collective term, run on one
+rank's block under a ``launch/mesh.py`` ``CountingMesh``).
 
 The differentiable forms carry the transpose that the meaning of their
 operands asks for:
@@ -26,6 +29,11 @@ operands asks for:
 * ``take_slice``: this rank's slice of a tensor replicated along the
   axis; its gradient is the all-gather of the slices' gradients, so that
   what lies below it receives the whole gradient on every rank.
+
+The tensor-parallel forms ``tp_all_gather`` and ``tp_all_reduce`` (the
+dense path's, ``models/partitioning.TensorParallel``) serve inference
+only: a gradient that reaches one raises ``NotImplementedError``, since
+training across ranks, with TP's transposes, is not ported.
 
 Only list-form ``all_gather``, list-form ``reduce_scatter`` and
 ``all_reduce`` are called. gloo takes the first and the last on CUDA
@@ -71,6 +79,10 @@ def _size(mesh, axis: str) -> int:
     return mesh.axis_sizes[axis]
 
 
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in the
     order of their coordinates."""
@@ -78,10 +90,13 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     n = _size(mesh, axis)
     if n == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=mesh.group(axis))
-    out = torch.cat(parts, dim)
+    if _meta(x):
+        out = torch.cat([x] * n, dim)
+    else:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=mesh.group(axis))
+        out = torch.cat(parts, dim)
     _record("all-gather", out)
     return out
 
@@ -96,18 +111,24 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str,
         return x
     chunks = [c.contiguous() for c in x.chunk(n, dim)]
     out = torch.empty_like(chunks[0])
-    dist.reduce_scatter(out, chunks, group=mesh.group(axis))
+    if not _meta(x):
+        dist.reduce_scatter(out, chunks, group=mesh.group(axis))
     _record("reduce-scatter", out)
     return out
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The sum of the ranks' ``x`` along ``axis`` (a new tensor)."""
+def all_reduce(x: torch.Tensor, mesh, axis: str,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (``op`` "sum") or the maximum ("max") of the ranks' ``x``
+    along ``axis`` (a new tensor)."""
     import torch.distributed as dist
     if _size(mesh, axis) == 1:
         return x
     out = x.clone()
-    dist.all_reduce(out, group=mesh.group(axis))
+    if not _meta(x):
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op],
+                        group=mesh.group(axis))
     _record("all-reduce", out)
     return out
 
@@ -167,3 +188,35 @@ def take_slice(x, mesh, axis: str, dim: int) -> torch.Tensor:
     if _size(mesh, axis) == 1:
         return x
     return _TakeSlice.apply(x, mesh, axis, dim)
+
+
+class _Inference(torch.autograd.Function):
+    """A collective of the tensor-parallel forward, which no gradient may
+    pass: its transpose is the next slice's."""
+
+    @staticmethod
+    def forward(ctx, x, fn, args):
+        return fn(x, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "a gradient through a tensor-parallel collective: training "
+            "across ranks (the data-parallel reduction and TP's "
+            "transposes) is not ported (ROADMAP.md Queue 1)")
+
+
+def _inference(fn, x, *args):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Inference.apply(x, fn, args)
+    return fn(x, *args)
+
+
+def tp_all_gather(x, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``all_gather`` for the tensor-parallel forward (no gradient)."""
+    return _inference(all_gather, x, mesh, axis, dim)
+
+
+def tp_all_reduce(x, mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """``all_reduce`` for the tensor-parallel forward (no gradient)."""
+    return _inference(all_reduce, x, mesh, axis, op)

@@ -16,9 +16,16 @@ Per case, records:
     against the mesh as the reference's ``_shard_tree`` does (a dim the
     mesh axes do not divide stays whole);
   * the analytic roofline terms (``launch/analytic.py``) at H100 SXM
-    constants. The collective term has no count on the meta device
-    (``COLLECTIVE_REASON``), and peak bytes have no counterpart of XLA's
-    memory analysis: both are written as null.
+    constants;
+  * the collective term: rank 0's block of the case's arguments run on
+    ``meta`` under the same rules with a ``CountingMesh`` (the
+    tensor-parallel path issues its collectives through
+    ``launch/collectives.py``, which count the result bytes by kind and
+    move nothing there, as ``hlo.py`` reads them off the compiled
+    program), over NVLink's datasheet rate. Counted for the prefill and
+    decode steps of the attention decoders under the baseline rules;
+    every other case writes null with its reason (``collective_reason``).
+    Peak bytes have no counterpart of XLA's memory analysis: null.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k
@@ -38,8 +45,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config
+from repro_torch.launch import collectives
 from repro_torch.launch.analytic import step_flops, step_hbm_bytes
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import CountingMesh, make_production_mesh
+from repro_torch.launch.ranks import ARG_ROLES, rank_block
 from repro_torch.launch.specs import build_case, decode_supported, train_plan
 from repro_torch.models.partitioning import P, tp_rules
 
@@ -52,11 +61,51 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
-COLLECTIVE_REASON = ("the port has no tensor-parallel collectives, and no "
-                     "count of collectives on the meta device: it counts "
-                     "them only where live ranks call them "
-                     "(launch/collectives.py; ROADMAP.md Queue 1)")
+# NVLink of one H100 SXM from its datasheet: 900 GB/s a GPU (18 links,
+# both directions together); the collective term is a rank's result
+# bytes over it, as the reference's is over its link rate
+NVLINK_BW = 900e9
 PEAK_REASON = "no counterpart of XLA's memory analysis in the port"
+
+
+def collective_reason(cfg, kind: str, rules) -> str | None:
+    """Why the collective term of a case is not counted, or None where it
+    is: the prefill and decode steps of an attention decoder under the
+    baseline rules, the one path whose collectives run across ranks on
+    the meta device (tensor parallelism, ``partitioning.TensorParallel``)."""
+    todo = "is not ported (ROADMAP.md Queue 1)"
+    if kind == "train":
+        return ("training across ranks (the data-parallel gradient "
+                f"reduction and TP's transposes) {todo}")
+    if rules.rules.get("embed") is not None:
+        return f"the fsdp rules' ZeRO-3 gathers of the dense leaves {todo}"
+    if rules.rules.get("expert") is not None:
+        return ("the expert-parallel rules' branch runs across live ranks "
+                "only (launch/ranks.py): not counted on the meta device")
+    if rules.rules.get("kv_seq") is not None:
+        return f"decode_kv='seq' under tensor parallelism {todo}"
+    if cfg.encoder is not None:
+        return f"the encoder-decoder (whisper) under tensor parallelism {todo}"
+    if any(sp.mixer == "ssm" for sp in cfg.pattern):
+        return f"the SSM block under tensor parallelism {todo}"
+    if any(sp.ffn == "moe" for sp in cfg.pattern):
+        return f"MoE-TP (each expert's ff over 'model') across ranks {todo}"
+    return None
+
+
+def rank_collectives(cfg, case, kind: str, rules, coords) -> dict:
+    """Collective result bytes by kind of the rank at ``coords``: its
+    block of the case's (meta) arguments, cut as ``launch/ranks.py`` cuts
+    a rank's, through the case's step on ``meta``. ``case`` was built
+    under ``rules``, whose mesh is a ``CountingMesh`` at ``coords``."""
+    block = rank_block(cfg, ARG_ROLES[kind], case.in_specs, case.args,
+                       rules, coords)
+    collectives.reset()
+    with torch.device("meta"):
+        case.fn(*block)
+    out = collectives.collective_bytes()
+    collectives.reset()
+    return out
 
 
 def sanitize(spec, shape, sizes) -> P:
@@ -158,12 +207,25 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
     by_arg = [device_bytes(s, a, axis_sizes)
               for s, a in zip(case.in_specs, case.args)]
 
+    reason = collective_reason(cfg, shape.kind, rules)
+    coll = None
+    if reason is None:
+        coords = {a: 0 for a in mesh.axis_names}
+        counting = tp_rules(multi_pod=multi_pod, axis_sizes=axis_sizes,
+                            mesh=CountingMesh(mesh, coords), **rules_kw)
+        coll = rank_collectives(
+            cfg, build_case(cfg, shape, counting, kv_dtype=kv_dtype),
+            shape.kind, counting, coords)
+
     n_micro = train_plan(rules, shape)[0] if shape.kind == "train" else 1
     a_flops = step_flops(cfg, shape)
     a_bytes = step_hbm_bytes(cfg, shape, n_chips, n_micro,
                              kv_elem_bytes=1 if kv_dtype is not None else 2)
     t_compute = a_flops / (n_chips * PEAK_FLOPS)
     t_memory = a_bytes / HBM_BW
+    t_coll = None if coll is None else sum(coll.values()) / NVLINK_BW
+    terms = {"compute": t_compute, "memory": t_memory,
+             "collective": t_coll}
 
     model_flops = 6.0 * cfg.active_param_count() * (
         shape.seq_len * shape.global_batch if shape.kind == "train" else 0)
@@ -189,15 +251,17 @@ def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
         },
         "analytic_flops_global": a_flops,
         "analytic_hbm_bytes_per_device": a_bytes,
-        "collective_bytes": None,
-        "collective_reason": COLLECTIVE_REASON,
+        "collective_bytes": coll,
+        "collective_reason": reason,
         "constants": {"card": CARD, "peak_flops": PEAK_FLOPS,
-                      "hbm_bytes_per_s": HBM_BW, "kind": "analytic"},
+                      "hbm_bytes_per_s": HBM_BW,
+                      "nvlink_bytes_per_s": NVLINK_BW, "kind": "analytic"},
         "roofline": {
             "compute_s": t_compute,
             "memory_s": t_memory,
-            "collective_s": None,
-            "bottleneck": "compute" if t_compute >= t_memory else "memory",
+            "collective_s": t_coll,
+            "bottleneck": max((k for k, v in terms.items()
+                               if v is not None), key=terms.get),
         },
         "model_flops_global": model_flops,
         "useful_flops_ratio": (model_flops / a_flops if a_flops else 0.0),
@@ -224,10 +288,13 @@ def report(tag: str, res: dict) -> str:
     if "skipped" in res:
         return f"SKIP {tag}: {res['skipped']}"
     r = res["roofline"]
+    coll = ("null" if r["collective_s"] is None else
+            f"{r['collective_s'] * 1e3:.2f}ms "
+            f"({sum(res['collective_bytes'].values()) / 2 ** 20:.1f}MiB)")
     return (f"OK   {tag}: run={res['run_s']:.1f}s "
             f"args={res['memory']['argument_bytes'] / 2 ** 30:.2f}GiB/dev "
             f"compute={r['compute_s'] * 1e3:.2f}ms "
-            f"memory={r['memory_s'] * 1e3:.2f}ms coll=null "
+            f"memory={r['memory_s'] * 1e3:.2f}ms coll={coll} "
             f"bound={r['bottleneck']}")
 
 
@@ -238,7 +305,9 @@ def main():
         "allocated, no card needed. Per-device argument bytes and the "
         "analytic roofline terms at H100 SXM constants "
         f"({CARD}: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
-        f"{HBM_BW / 1e12:.2f} TB/s).")
+        f"{HBM_BW / 1e12:.2f} TB/s), and the collective term of the "
+        f"dense decoders' prefill and decode steps under the baseline "
+        f"rules at NVLink's {NVLINK_BW / 1e9:.0f} GB/s.")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")

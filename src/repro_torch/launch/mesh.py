@@ -6,9 +6,12 @@ each device's shard, and a description touches no device and no
 ``torch.distributed``. ``ProcessMesh`` lays a description over the live
 process group, one rank a mesh position (row-major, as ``jax.make_mesh``
 lays devices), through torch's ``init_device_mesh``: the expert-parallel
-branch of ``models/moe.py`` is the first collective that needs one, and
-calls its collectives over the groups of its axes
-(``launch/collectives.py``).
+branch of ``models/moe.py`` and the tensor-parallel dense path
+(``models/partitioning.TensorParallel``) call their collectives over the
+groups of its axes (``launch/collectives.py``). ``CountingMesh`` is one
+rank's view of a description with no group: on the ``meta`` device the
+collectives count what that rank would move and move nothing (the
+dry-run's collective term).
 """
 from __future__ import annotations
 
@@ -81,3 +84,34 @@ class ProcessMesh:
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
+
+
+class CountingMesh:
+    """One rank of a ``MeshDesc``, at ``coords`` (an index an axis), with
+    no process group: it reads as a ``ProcessMesh`` (``axis_sizes``,
+    ``coordinate``) for the code that places tensors, and its collectives
+    run only on ``meta`` tensors, where they count and communicate
+    nothing."""
+
+    def __init__(self, desc: MeshDesc, coords: Dict[str, int]):
+        if set(coords) != set(desc.axis_names) or any(
+                not 0 <= coords[a] < n for a, n in desc.axis_sizes.items()):
+            raise ValueError(f"CountingMesh: coordinates {coords} outside "
+                             f"the mesh {desc.axis_sizes}")
+        self.desc = desc
+        self._coord = dict(coords)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.desc.axis_names
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return self.desc.axis_sizes
+
+    def coordinate(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def group(self, axis: str):
+        raise RuntimeError("CountingMesh: no process group; its collectives "
+                           "run on meta tensors only (count, no data)")

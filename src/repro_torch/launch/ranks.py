@@ -1,17 +1,23 @@
-"""Ranks of the expert-parallel branch: each rank's block of a case, and
-the worker that runs a case's steps across ranks.
+"""Ranks across a process mesh: each rank's block of a case, and the
+worker that runs a case's steps across ranks.
 
-How a rank holds a ``launch/specs.build_case`` case under
-``tp_rules(expert_parallel=True, ...)`` with a ``ProcessMesh``:
+How a rank holds a ``launch/specs.build_case`` case with a
+``ProcessMesh`` in its rules:
 
-* the batch tensors (tokens, lengths, caches, images, frames) are cut
-  over the batch axes only: a rank holds its rows, the same rows on
-  every rank of one expert line;
-* the expert weights ``wi``, ``wg``, ``wo`` and their AdamW moments are
-  cut by their specs where the branch runs (``moe.expert_parallel``):
-  this rank's E / ep experts, and under the fsdp rules its d / z slice
-  along ``embed`` (``moe.zero_gathered``);
-* every other tensor is whole on every rank.
+* under the baseline rules (``tp_rules()``: tensor parallelism,
+  ``partitioning.tensor_parallel``) every parameter, cache and output
+  is cut as its spec says after the divisibility rule
+  (``partitioning.placement``, the dry-run's ``sanitize``): the bytes a
+  rank holds are the dry-run's per-device bytes. A dense cache cut over
+  its sequence must have the axis divide it (``rank_caches``);
+* under ``tp_rules(expert_parallel=True, ...)`` the batch tensors
+  (tokens, lengths, caches, images, frames) are cut over the batch axes
+  only: a rank holds its rows, the same rows on every rank of one
+  expert line; the expert weights ``wi``, ``wg``, ``wo`` and their AdamW
+  moments are cut by their specs where the branch runs
+  (``moe.expert_parallel``): this rank's E / ep experts, and under the
+  fsdp rules its d / z slice along ``embed`` (``moe.zero_gathered``);
+  every other tensor is whole on every rank.
 
 ``rank_block`` cuts whole arguments or outputs to a rank's block and
 ``gather_blocks`` puts the blocks back together (for tests: copies that
@@ -21,15 +27,17 @@ through a ``file://`` store in a directory of the caller's and to the
 mesh, runs the jobs it is given and hands back each rank's results on
 the CPU. The jobs: ``run_plan_rank`` draws only this rank's block of
 the parameters (``init_params``' cut, layer by layer), builds the case
-with the process mesh in its rules and runs its steps; ``run_moe_rank``
-runs one ``moe_block`` with its gradient. ``run_plan`` is the same plan
-in one process: the reference the ranks are held to.
+with the process mesh in its rules and runs its steps (a ``Plan``'s
+``paged`` steps run the paged pool instead: a prefill, a suffix prefill
+over its cached prefix, decode steps); ``run_moe_rank`` runs one
+``moe_block`` with its gradient. ``run_plan`` is the same plan in one
+process: the reference the ranks are held to.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
-import math
 import os
 import time
 import traceback
@@ -42,15 +50,19 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import collectives, distributed
-from repro_torch.launch.mesh import MeshDesc, ProcessMesh
+from repro_torch.launch.mesh import CountingMesh, MeshDesc, ProcessMesh
 from repro_torch.launch.specs import build_case
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import (ParamSpec, flatten, init_params,
                                        moe_spec, param_structure)
-from repro_torch.models.partitioning import P, ShardingRules, tp_rules, \
-    use_rules
-from repro_torch.models.transformer import clone_caches, make_caches
+from repro_torch.models.model import decode_forward, prefill_forward
+from repro_torch.models.partitioning import (P, ShardingRules, block_index,
+                                             kv_heads_cut, mesh_axes,
+                                             placement, tensor_parallel,
+                                             tp_rules, use_rules)
+from repro_torch.models.transformer import (cache_pspecs, clone_caches,
+                                            make_caches, reset_caches)
 from repro_torch.training.optimizer import AdamW
 
 # the role of each argument of a case, and of each output of its step
@@ -77,33 +89,6 @@ def coordinates(desc: MeshDesc, rank: int) -> Dict[str, int]:
     return out
 
 
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return entry if isinstance(entry, tuple) else (entry,)
-
-
-def block_index(shape, entries, sizes: Dict[str, int],
-                coords: Dict[str, int]) -> Tuple[slice, ...]:
-    """The slices of a tensor of ``shape`` that the rank at ``coords``
-    holds when dim i is cut over the mesh axes of ``entries[i]`` (row-
-    major over several axes); a dim those axes do not divide stays
-    whole."""
-    idx = []
-    for dim, entry in zip(shape, tuple(entries) + (None,) * len(shape)):
-        axes = _axes(entry)
-        n = math.prod(sizes[a] for a in axes)
-        if n == 1 or dim % n:
-            idx.append(slice(None))
-            continue
-        pos = 0
-        for a in axes:
-            pos = pos * sizes[a] + coords[a]
-        step = dim // n
-        idx.append(slice(pos * step, (pos + 1) * step))
-    return tuple(idx)
-
-
 def expert_entries(spec: ParamSpec, rules: ShardingRules):
     """Mesh axes each dim of a parameter leaf is cut over, or None when
     the leaf is whole on every rank: only the expert weights are cut, and
@@ -125,10 +110,20 @@ def expert_entries(spec: ParamSpec, rules: ShardingRules):
     return out
 
 
+def leaf_entries(spec: ParamSpec, rules: ShardingRules):
+    """Mesh axes each dim of a parameter leaf is cut over on a rank, or
+    None when it is whole on every rank: under tensor parallelism its
+    placement, else the expert-parallel branch's cut."""
+    if tensor_parallel(rules) is not None:
+        entries = placement(rules, spec.axes, spec.shape)
+        return entries if any(e is not None for e in entries) else None
+    return expert_entries(spec, rules)
+
+
 def param_cut(rules: ShardingRules, coords: Dict[str, int]):
-    """``init_params``' cut: this rank's block of each expert leaf."""
+    """``init_params``' cut: this rank's block of each leaf it cuts."""
     def cut(spec: ParamSpec):
-        entries = expert_entries(spec, rules)
+        entries = leaf_entries(spec, rules)
         if entries is None:
             return None
         return block_index(spec.shape, entries, rules.axis_sizes, coords)
@@ -136,9 +131,13 @@ def param_cut(rules: ShardingRules, coords: Dict[str, int]):
 
 
 def _batch_entries(spec, rules: ShardingRules):
-    """The entries of a batch tensor's spec that name only batch axes."""
-    batch = set(_axes(rules.rules.get("batch")))
-    return [e if e is not None and set(_axes(e)) <= batch else None
+    """The entries of a batch tensor's spec a rank cuts it over: all of
+    them under tensor parallelism, else those that name only batch
+    axes."""
+    if tensor_parallel(rules) is not None:
+        return list(spec or ())
+    batch = set(mesh_axes(rules.rules.get("batch")))
+    return [e if e is not None and set(mesh_axes(e)) <= batch else None
             for e in tuple(spec or ())]
 
 
@@ -170,7 +169,7 @@ def _leaf_entries(cfg: ModelConfig, role: str, spec, tree, rules,
         return [None] * len(flatten(tree))
     if role == "params":
         structure = structure or param_structure(cfg)
-        return [expert_entries(s, rules) for s in flatten(structure)]
+        return [leaf_entries(s, rules) for s in flatten(structure)]
     if role == "opt":
         per = _leaf_entries(cfg, "params", None, None, rules, structure)
         return [None] + per + per
@@ -259,7 +258,7 @@ def out_specs(kind: str, case, rules: ShardingRules) -> tuple:
     if kind == "train":
         return (None, None, None)
     cache_spec = case.in_specs[3] if kind == "prefill" else case.in_specs[2]
-    return (rules.spec(("batch", None)), cache_spec)
+    return (rules.spec(("batch", "act_vocab")), cache_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -269,17 +268,30 @@ def out_specs(kind: str, case, rules: ShardingRules) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A case's steps on one configuration: a prefill of ``prefill``
-    (batch, padded length, true lengths), then optionally a decode step
-    over the caches it filled, and a train step of ``train`` (batch,
-    length). Parameters are drawn from seed ``SEED`` on the device,
-    inputs from ``SEED`` + 1 on the CPU."""
+    (batch, padded length, true lengths), then ``decode`` decode steps
+    over the caches it filled (the first fed random tokens, each later
+    one the greedy tokens of the step before), and a train step of
+    ``train`` (batch, length). ``paged`` (page, prefix length, prompt
+    length) runs a paged pool instead of ``prefill``, batch 1: a prefill
+    of the prompt's first tokens, a suffix prefill of the rest over them
+    (``prefix_len`` / ``pos_base``), then the decode steps. Parameters
+    are drawn from seed ``SEED`` on the device, inputs from ``SEED`` + 1
+    on the CPU."""
     arch: str
     reduced: bool = True
     layers: Optional[int] = None
+    # (n_heads, n_kv_heads) in place of the config's
+    heads: Optional[Tuple[int, int]] = None
     dtype: str = "float32"
+    # K/V storage dtype of the caches ("float8_e4m3fn"), default dtype
+    kv_dtype: Optional[str] = None
+    # the rules: the expert-parallel branch's, or the baseline tensor-
+    # parallel ones
+    expert_parallel: bool = True
     fsdp: bool = False
     prefill: Optional[Tuple[int, int, Tuple[int, ...]]] = None
-    decode: bool = False
+    paged: Optional[Tuple[int, int, int]] = None
+    decode: int = 0
     train: Optional[Tuple[int, int]] = None
     # hand back the caches, new parameters and AdamW state as ``digest``s
     # (the logits and metrics whole): what a full-size run can return
@@ -287,6 +299,9 @@ class Plan:
     # run each step once first on copies of what it writes, so that the
     # counted, timed run is warm
     warm: bool = False
+    # on the card, run the first decode step once more on copies of the
+    # caches under torch.profiler (``trace_step``), after the counted run
+    trace: bool = False
 
 
 def plan_config(plan: Plan) -> ModelConfig:
@@ -296,14 +311,51 @@ def plan_config(plan: Plan) -> ModelConfig:
     if plan.layers:
         cfg = dataclasses.replace(cfg, n_layers=plan.layers,
                                   name=f"{cfg.name}-{plan.layers}layer")
+    if plan.heads:
+        nq, nkv = plan.heads
+        cfg = dataclasses.replace(cfg, n_heads=nq, n_kv_heads=nkv,
+                                  name=f"{cfg.name}-{nq}q{nkv}kv")
     return cfg
 
 
 def plan_rules(plan: Plan, desc: MeshDesc, mesh=None) -> ShardingRules:
-    """Expert-parallel rules at the mesh's sizes; ``mesh`` None gives the
+    """The plan's rules at the mesh's sizes; ``mesh`` None gives the
     one-process run of the same plan (the same ``train_plan``)."""
-    return tp_rules(expert_parallel=True, fsdp=plan.fsdp,
+    return tp_rules(expert_parallel=plan.expert_parallel, fsdp=plan.fsdp,
                     axis_sizes=desc.axis_sizes, mesh=mesh)
+
+
+def block_rules(plan: Plan, desc: MeshDesc) -> ShardingRules:
+    """The plan's rules with a rank mesh over ``desc`` (a ``CountingMesh``
+    at rank 0; no group): what ``rank_block`` and ``gather_blocks`` take
+    on the host to cut, or put back together, the blocks the ranks hold
+    (under tensor parallelism every leaf is cut)."""
+    return plan_rules(plan, desc, CountingMesh(desc, coordinates(desc, 0)))
+
+
+def rank_caches(cfg: ModelConfig, batch: int, max_len: int,
+                rules: ShardingRules, coords: Dict[str, int], *,
+                device, **kw) -> Dict[str, Any]:
+    """This rank's block of ``make_caches(cfg, batch, max_len, **kw)``,
+    cut as ``rank_block`` cuts a case's caches (by ``cache_pspecs``),
+    filled as a fresh cache is. Under tensor parallelism a dense cache
+    cut over its sequence must have the axis divide it: a rank reads the
+    place of its slots from its share of the sequence."""
+    layout = kw.get("layout", "dense")
+    whole = make_caches(cfg, batch, max_len, device="meta", **kw)
+    tp = tensor_parallel(rules)
+    if tp is not None and layout == "dense" and \
+            not kv_heads_cut(rules, cfg.n_kv_heads) and max_len % tp.ways:
+        raise NotImplementedError(
+            f"rank_caches: a dense cache of {max_len} slots cut over its "
+            f"sequence {tp.ways} ways")
+    specs = cache_pspecs(cfg, rules, layout)
+    out = _walk(lambda spec, t: torch.zeros(
+        t[block_index(t.shape, _batch_entries(spec, rules),
+                      rules.axis_sizes, coords)].shape,
+        dtype=t.dtype, device=device), specs, whole)
+    reset_caches(out)
+    return out
 
 
 def _ints(gen, high, shape):
@@ -316,36 +368,43 @@ def _normal(gen, shape, dtype):
 
 def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
           device, coords: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
-    """Run the plan's steps through ``build_case``'s step functions.
-    ``params`` are whole in one process (``coords`` None), or this rank's
-    block; the inputs are made whole and cut to the rank's rows. Per
-    step: its outputs, the kernel launches and the collectives (counts
-    set to 0 just before the step, read just after), and its seconds
-    (after a warm-up on copies where ``plan.warm``)."""
+    """Run the plan's steps through ``build_case``'s step functions (the
+    paged steps through ``prefill_forward`` / ``decode_forward`` under
+    the rules). ``params`` are whole in one process (``coords`` None), or
+    this rank's block; the inputs are made whole and cut to the rank's
+    block, the caches made as this rank's block. Per step: its outputs,
+    the kernel launches and the collectives (counts set to 0 just before
+    the step, read just after), and its seconds (after a warm-up on
+    copies where ``plan.warm``); the first decode step under "decode",
+    the later ones in the list "more"; "greedy" (b_rows, steps): the
+    argmax of each step's logits over the whole vocabulary (gathered
+    after the step where a rank holds a block of it); "inputs": the whole
+    inputs drawn (the prefill's "tokens", "lengths", "mm", "enc"; the
+    first decode step's "decode")."""
     dt = getattr(torch, plan.dtype)
+    kv = getattr(torch, plan.kv_dtype) if plan.kv_dtype else None
     gen = torch.Generator().manual_seed(SEED + 1)
-    res: Dict[str, Any] = {}
+    tp = None if coords is None else tensor_parallel(rules)
+    res: Dict[str, Any] = {"more": [], "greedy": [], "inputs": {}}
 
-    def step(kind, case, args, cut=()):
-        """Run one step; on a rank, first cut ``args[i]`` for i in
-        ``cut`` (whole batch tensors) to this rank's rows."""
-        if coords is not None and cut:
-            mine = rank_block(cfg, ("batch",) * len(cut),
-                              [case.in_specs[i] for i in cut],
-                              [args[i] for i in cut], rules, coords)
-            args = list(args)
-            for i, t in zip(cut, mine):
-                args[i] = t
+    def cut(specs, args):
+        """On a rank, the whole batch tensors ``args`` cut to its block."""
+        if coords is None:
+            return list(args)
+        return list(rank_block(cfg, ("batch",) * len(args), specs, args,
+                               rules, coords))
+
+    def step(kind, fn, args, at=None):
+        """Run one step; ``args[at]``: the caches it writes."""
         if plan.warm:
-            at = {"prefill": 3, "decode": 2}.get(kind)
-            case.fn(*(clone_caches(a) if i == at else a
-                      for i, a in enumerate(args)))
+            fn(*(clone_caches(a) if i == at else a
+                 for i, a in enumerate(args)))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ops.reset_launch_counts()
         collectives.reset()
         t0 = time.perf_counter()
-        out = case.fn(*args)
+        out = fn(*args)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         secs = time.perf_counter() - t0
@@ -353,14 +412,46 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
         if plan.digest:
             kept = ((out[0], digest(out[1])) if kind != "train" else
                     (digest(out[0]), digest(out[1]), out[2]))
-        res[kind] = dict(out=kept, s=secs,
-                         launches=ops.launch_counts(),
-                         collectives=collectives.collective_bytes(),
-                         calls=collectives.collective_calls())
+        rec = dict(out=kept, s=secs, launches=ops.launch_counts(),
+                   collectives=collectives.collective_bytes(),
+                   calls=collectives.collective_calls())
+        if kind == "decode" and "decode" in res:
+            res["more"].append(rec)
+        else:
+            res[kind] = rec
+            if plan.trace and kind == "decode" and device.type == "cuda":
+                rec["trace"] = trace_step(fn, [
+                    clone_caches(a) if i == at else a
+                    for i, a in enumerate(args)], device)
+        if kind != "train":
+            logits = out[0]
+            if tp is not None and logits.shape[-1] < cfg.vocab:
+                logits = collectives.all_gather(logits, tp.mesh, tp.axis,
+                                                dim=-1)
+            res["greedy"].append(logits.argmax(-1).to(torch.int32))
         return out
 
     def to(t):
         return None if t is None else t.to(device)
+
+    def caches_of(b, max_len, **kw):
+        kw = dict(dtype=dt, kv_dtype=kv, **kw)
+        if coords is None:
+            return make_caches(cfg, b, max_len, device=device, **kw)
+        return rank_caches(cfg, b, max_len, rules, coords, device=device,
+                           **kw)
+
+    def decode(b, max_len, caches, fn=None):
+        """``plan.decode`` steps, the first fed random tokens."""
+        case = build_case(cfg, InputShape("decode", max_len, b, "decode"),
+                          rules)
+        first = to(_ints(gen, cfg.vocab, (b,)))
+        res["inputs"]["decode"] = first
+        toks = cut((case.in_specs[1],), (first,))
+        for _ in range(plan.decode):
+            _, caches = step("decode", fn or case.fn,
+                             (params, toks[0], caches), at=2)
+            toks = [res["greedy"][-1]]
 
     if plan.prefill is not None:
         b, s, lengths = plan.prefill
@@ -369,17 +460,51 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
         mm, enc = case.args[4], case.args[5]
         mm = None if mm is None else _normal(gen, mm.shape, dt)
         enc = None if enc is None else _normal(gen, enc.shape, dt)
-        caches = make_caches(cfg, b, s, dtype=dt, device=device)
-        _, caches = step("prefill", case, (
-            params, to(toks), torch.tensor(lengths, dtype=torch.int32,
-                                           device=device),
-            caches, to(mm), to(enc)), cut=(1, 2, 3, 4, 5))
-        if plan.decode:
-            # over the caches the prefill filled (this rank's rows already)
-            case = build_case(cfg, InputShape("decode", s, b, "decode"),
-                              rules)
-            step("decode", case, (params, to(_ints(gen, cfg.vocab, (b,))),
-                                  caches), cut=(1,))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        res["inputs"].update(tokens=toks, lengths=lens, mm=mm, enc=enc)
+        at = (1, 2, 4, 5)
+        args = cut([case.in_specs[i] for i in at],
+                   (to(toks), lens, to(mm), to(enc)))
+        _, caches = step("prefill", case.fn, (params, *args[:2],
+                                               caches_of(b, s), *args[2:]),
+                         at=3)
+        decode(b, s, caches)
+    if plan.paged is not None:
+        # batch 1, so one data rank: the pool is the rows' shared state
+        if rules.size("batch") > 1:
+            raise ValueError("a paged plan runs batch 1: one data rank")
+        page, prefix, n = plan.paged
+        max_len = -(-(n + plan.decode) // page) * page
+        width = max_len // page
+        caches = caches_of(1, max_len, layout="paged", page_size=page,
+                           n_pages=1 + width)
+        caches["pages"][0] = torch.arange(width, 0, -1, dtype=torch.int32)
+        text = _ints(gen, cfg.vocab, (n,))
+        first = torch.zeros((1, -(-prefix // page) * page),
+                            dtype=torch.int32)
+        first[0, :prefix] = text[:prefix]
+        pos_base = prefix // page * page
+        rest = torch.zeros((1, -(-n // page) * page - pos_base),
+                           dtype=torch.int32)
+        rest[0, prefix - pos_base:n - pos_base] = text[prefix:]
+
+        def prefill(params, tokens, caches, n, **kw):
+            with use_rules(rules):
+                return prefill_forward(params, cfg, tokens, caches,
+                                       lengths=torch.tensor(
+                                           [n], dtype=torch.int32,
+                                           device=device), **kw)
+
+        def paged_decode(params, tokens, caches):
+            with use_rules(rules):
+                return decode_forward(params, cfg, tokens, caches)
+
+        _, caches = step("prefill", prefill, (params, to(first), caches,
+                                              prefix), at=2)
+        _, caches = step("suffix", functools.partial(
+            prefill, prefix_len=prefix, pos_base=pos_base),
+            (params, to(rest), caches, n), at=2)
+        decode(1, max_len, caches, paged_decode)
     if plan.train is not None:
         b, s = plan.train
         case = build_case(cfg, InputShape("train", s, b, "train"), rules)
@@ -387,8 +512,42 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
                        if t.dtype == torch.int32 else
                        _normal(gen, t.shape, dt))
                  for k, t in case.args[2].items()}
-        step("train", case, (params, AdamW().init(params), batch), cut=(2,))
+        batch = cut((case.in_specs[2],), (batch,))[0]
+        step("train", case.fn, (params, AdamW().init(params), batch))
+    res["greedy"] = (torch.stack(res["greedy"], dim=1) if res["greedy"]
+                     else None)
     return res
+
+
+def trace_step(fn, args, device, top: int = 8) -> Dict[str, Any]:
+    """``fn(*args)`` once under torch.profiler, its result dropped: the
+    wall ms (tracing included), the device ms and launches of the kernels
+    it ran, the part of those ms in NCCL's kernels (which count the time
+    they wait for the other ranks), and the ``top`` kernels by device
+    time (ms, launches, name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _device_us
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    # the device rows named "nccl:..." are the collectives' annotations,
+    # ranges over their kernels, not kernels
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("nccl:")),
+                     key=_device_us, reverse=True)
+    return dict(wall_ms=1e3 * wall,
+                device_ms=sum(_device_us(e) for e in kernels) / 1e3,
+                nccl_ms=sum(_device_us(e) for e in kernels
+                            if e.key.startswith("ncclDevKernel")) / 1e3,
+                launches=sum(e.count for e in kernels),
+                top=[(_device_us(e) / 1e3, e.count, e.key[:80])
+                     for e in kernels[:top]])
 
 
 def digest(tree) -> torch.Tensor:
@@ -399,14 +558,21 @@ def digest(tree) -> torch.Tensor:
     return torch.stack(rows).cpu()
 
 
+def plan_params(plan: Plan, device, cut=None):
+    """The plan's parameters, drawn from ``SEED`` on ``device`` (only the
+    block ``cut`` keeps, where given: ``init_params``' cut)."""
+    device = torch.device(device)
+    return init_params(plan_config(plan), torch.Generator(
+        device=device).manual_seed(SEED), device=device,
+        dtype=getattr(torch, plan.dtype), cut=cut)
+
+
 def run_plan(plan: Plan, desc: MeshDesc, device) -> Dict[str, Any]:
     """The plan in one process, with whole parameters, under the rules of
     the mesh's sizes with no mesh: the reference the ranks are held to."""
     device = torch.device(device)
-    cfg = plan_config(plan)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(
-        SEED), device=device, dtype=getattr(torch, plan.dtype))
-    return drive(cfg, plan, params, plan_rules(plan, desc), device)
+    return drive(plan_config(plan), plan, plan_params(plan, device),
+                 plan_rules(plan, desc), device)
 
 
 def run_plan_rank(mesh: ProcessMesh, device, plan: Plan) -> Dict[str, Any]:
@@ -416,9 +582,7 @@ def run_plan_rank(mesh: ProcessMesh, device, plan: Plan) -> Dict[str, Any]:
     cfg = plan_config(plan)
     rules = plan_rules(plan, mesh.desc, mesh)
     coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(
-        SEED), device=device, dtype=getattr(torch, plan.dtype),
-        cut=param_cut(rules, coords))
+    params = plan_params(plan, device, cut=param_cut(rules, coords))
     res = drive(cfg, plan, params, rules, device, coords)
     del params
     return res

@@ -5,6 +5,17 @@ Same functions as ``repro/models/layers.py``. Where the reference returns
 new cache arrays, the port writes the cache views it is given in place
 (the engine's caches are preallocated and reused) and returns the same
 views. Attention goes through ``repro_torch.kernels.ops``.
+
+Under tensor parallelism across ranks (``partitioning.tensor_parallel``)
+``attention_block`` and ``mlp_block`` run on a rank's blocks of their
+weights and caches: q/k/v columns gathered where the heads are not cut,
+attention over this rank's q heads and the kv heads they read (whatever
+group those form), ``wo`` summed over the ranks. A dense cache whose kv
+heads the axis does not divide is cut over its sequence: a decode step
+then attends every head over this rank's slots and combines the ranks'
+results by their log-sum-exps (flash-decode, as the reference's GSPMD
+program does); a paged pool is then whole on every rank, and the kv
+heads a rank's q heads read are copied out of it where they are not all.
 """
 from __future__ import annotations
 
@@ -15,7 +26,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
-from repro_torch.models.partitioning import shard
+from repro_torch.launch import collectives
+from repro_torch.models.params import attn_spec
+from repro_torch.models.partitioning import (kv_heads_cut, refuse_cut, shard,
+                                             tensor_parallel)
 
 FP8 = K.FP8
 # the largest magnitude that rounds into float8_e4m3fn (448 and the tie
@@ -131,6 +145,9 @@ def compute_cross_kv(p, enc_out, enc_pos, cfg: ModelConfig):
 def cross_attention_block(p, x, positions, enc_kv, cfg: ModelConfig):
     """Cross-attention over precomputed encoder K/V; residual included.
     Non-causal, so flash takes every query, the single decode token too."""
+    refuse_cut("cross_attention_block",
+               lambda: attn_spec(cfg, cross=True),
+               "the encoder-decoder (whisper) under tensor parallelism")
     k, v, enc_pos = enc_kv
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
     q = _split_heads(h @ p["xwq"], cfg.n_heads, cfg.head_dim)
@@ -168,16 +185,31 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
     The cache views are written in place. Returns (out, cache_views_or_None).
     """
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    tp = tensor_parallel()
+
+    def heads(w, n, w_logical, act_logical):
+        """(h @ p[w] split into heads, its first head: 0 where whole)."""
+        if tp is None:
+            return _split_heads(h @ p[w], n, cfg.head_dim), 0
+        return tp.heads(h @ p[w], n, cfg.head_dim, w_logical, act_logical)
+
     # q/k/v are constrained on their HEAD axes (shard() leaves a head
     # count that the model axis does not divide whole)
-    q = _split_heads(h @ p["wq"], cfg.n_heads, cfg.head_dim)
+    q, q0 = heads("wq", cfg.n_heads, "q", "act_heads")
     q = shard(q, "batch", None, "act_heads", None)
-    k = _split_heads(h @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(h @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    k, k0 = heads("wk", cfg.n_kv_heads, "kv", "act_kv_heads")
+    v, _ = heads("wv", cfg.n_kv_heads, "kv", "act_kv_heads")
     k = shard(k, "batch", None, "act_kv_heads", None)
     v = shard(v, "batch", None, "act_kv_heads", None)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+
+    def sel(kk, vv):
+        """K/V of the kv heads this rank's q heads read."""
+        if tp is None:
+            return kk, vv
+        return _kv_for(q, q0, kk, vv, k0, cfg.n_heads // cfg.n_kv_heads)
+
     b = x.shape[0]
 
     new_cache = None
@@ -196,7 +228,7 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             ck[phys, off] = to_kv(k[:, 0], ck.dtype)
             cv[phys, off] = to_kv(v[:, 0], cv.dtype)
             new_cache = (ck, cv)
-            out = K.paged_attention(q[:, 0], ck, cv, pages, pos + 1,
+            out = K.paged_attention(q[:, 0], *sel(ck, cv), pages, pos + 1,
                                     window=window)[:, None]
         elif prefix_len is None:
             # prefill: scatter the (padded) sequence's pages into the pool
@@ -212,7 +244,8 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             cv[flat] = to_kv(v.reshape(b * npg, page, *v.shape[2:]), cv.dtype)
             new_cache = (ck, cv)
             # attends over the unrounded k/v, as the reference does
-            out = K.attention(q, k, v, positions, positions, window=window)
+            out = K.attention(q, *sel(k, v), positions, positions,
+                              window=window)
         else:
             # ---- suffix prefill against a cached prefix (batch 1) ----
             S = k.shape[1]
@@ -249,50 +282,144 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
             v_all = torch.cat([pv.to(q.dtype), v], dim=1)
             kv_pos = torch.cat([pfx_pos.expand(b, width * page), positions],
                                dim=1).contiguous()
-            out = K.attention(q, k_all, v_all, positions, kv_pos,
+            out = K.attention(q, *sel(k_all, v_all), positions, kv_pos,
                               window=window)
     elif cache is not None:
         ck, cv, cpos = cache
         S = ck.shape[1]
+        # under TP a dense cache whose kv heads the axis does not divide
+        # is cut over its sequence: this rank holds slots [base, base + S)
+        # of a ring of S * ways (one process: base 0, the whole ring)
+        seq_cut = tp is not None and not kv_heads_cut(tp.rules,
+                                                      cfg.n_kv_heads)
+        base, ring = (tp.coord * S, S * tp.ways) if seq_cut else (0, S)
+        new_cache = (ck, cv, cpos)
         if x.shape[1] == 1:
             # ---- decode: write one token into the ring buffer ----
-            slot = (cur_len % S).long()                        # (b,)
-            bidx = torch.arange(b, device=x.device)
-            ck[bidx, slot] = to_kv(k[:, 0], ck.dtype)
-            cv[bidx, slot] = to_kv(v[:, 0], cv.dtype)
-            cpos[bidx, slot] = positions[:, 0].to(torch.int32)
-            new_cache = (ck, cv, cpos)
-            # the decode kernel reads an fp8 cache as it is (the reference
-            # casts the whole cache to q's dtype first: the same function)
-            kv = (ck, cv) if ck.dtype == FP8 else (ck.to(q.dtype),
-                                                   cv.to(q.dtype))
-            out = K.attention(q, *kv, positions, cpos, window=window)
+            _write_slot(new_cache, k, v, positions, cur_len, base, ring)
+            if seq_cut:
+                out = _decode_seq_cut(tp, cfg, q, q0, new_cache, positions,
+                                      window)
+            else:
+                # the decode kernel reads an fp8 cache as it is (the
+                # reference casts the whole cache to q's dtype first: the
+                # same function)
+                kv = (ck, cv) if ck.dtype == FP8 else (ck.to(q.dtype),
+                                                       cv.to(q.dtype))
+                out = K.attention(q, *sel(*kv), positions, cpos,
+                                  window=window)
         else:
             # ---- prefill into cache (serving): seq fits the buffer ----
-            s = k.shape[1]
-            if S - s < 0:
-                raise ValueError("prefill longer than cache")
-            ck[:, :s] = to_kv(k, ck.dtype)
-            ck[:, s:] = 0
-            cv[:, :s] = to_kv(v, cv.dtype)
-            cv[:, s:] = 0
-            cpos[:, :s] = positions
-            cpos[:, s:] = -1
-            new_cache = (ck, cv, cpos)
-            out = K.attention(q, k, v, positions, positions, window=window)
+            _write_prefill(new_cache, k, v, positions, base, ring)
+            out = K.attention(q, *sel(k, v), positions, positions,
+                              window=window)
     else:
         # ---- training / encoder: no cache ----
-        out = K.attention(q, k, v, positions, positions, window=window,
-                          causal=causal)
+        out = K.attention(q, *sel(k, v), positions, positions,
+                          window=window, causal=causal)
 
-    out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
-    out = shard(out @ p["wo"], "batch", None, "act_embed")
-    return x + out, new_cache
+    out = out.reshape(x.shape[0], x.shape[1], -1)
+    out = out @ p["wo"] if tp is None else tp.contract(out, p["wo"], "q",
+                                                       cfg.q_dim)
+    return x + shard(out, "batch", None, "act_embed"), new_cache
+
+
+def _kv_for(q, q0: int, k, v, k0: int, group: int):
+    """K/V (dim 2 their heads, the first k0) of the kv heads that q's
+    heads q0, q0 + 1, ... read (q head h reads kv head h // group): as
+    they are where they hold exactly those, their slice where this rank's
+    q heads form a group of their own over it, else one kv head a q
+    head."""
+    nq = q.shape[2]
+    heads = [(q0 + i) // group - k0 for i in range(nq)]
+    lo, n = heads[0], heads[-1] + 1 - heads[0]
+    if nq % n == 0 and all(h - lo == i // (nq // n)
+                           for i, h in enumerate(heads)):
+        if (lo, n) == (0, k.shape[2]):
+            return k, v
+        return (k[:, :, lo:lo + n].contiguous(),
+                v[:, :, lo:lo + n].contiguous())
+    idx = torch.tensor(heads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _write_prefill(cache, k, v, positions, base: int, ring: int) -> None:
+    """A prefill's K/V (b x s) into a dense cache that holds slots
+    [base, base + S) of a ring of ``ring`` slots (one process: 0 and S);
+    the slots past the prompt cleared."""
+    ck, cv, cpos = cache
+    S, s = ck.shape[1], k.shape[1]
+    if ring < s:
+        raise ValueError("prefill longer than cache")
+    n = min(max(s - base, 0), S)
+    ck[:, :n] = to_kv(k[:, base:base + n], ck.dtype)
+    ck[:, n:] = 0
+    cv[:, :n] = to_kv(v[:, base:base + n], cv.dtype)
+    cv[:, n:] = 0
+    cpos[:, :n] = positions[:, base:base + n]
+    cpos[:, n:] = -1
+
+
+def _write_slot(cache, k, v, positions, cur_len, base: int,
+                ring: int) -> None:
+    """One decode token (k, v whole) into its ring slot ``cur_len % ring``
+    of a dense cache that holds slots [base, base + S) of the ring: where
+    the ring is cut over ranks, only the rank holding the slot writes
+    it."""
+    ck, cv, cpos = cache
+    b, S = ck.shape[:2]
+    bidx = torch.arange(b, device=k.device)
+    slot = (cur_len % ring).long()                             # (b,)
+    kk, vv = to_kv(k[:, 0], ck.dtype), to_kv(v[:, 0], cv.dtype)
+    pp = positions[:, 0].to(torch.int32)
+    if ring > S:
+        slot = slot - base
+        mine = (slot >= 0) & (slot < S)
+        slot = slot.clamp(0, S - 1)
+        kk = torch.where(mine[:, None, None], kk, ck[bidx, slot])
+        vv = torch.where(mine[:, None, None], vv, cv[bidx, slot])
+        pp = torch.where(mine, pp, cpos[bidx, slot])
+    ck[bidx, slot] = kk
+    cv[bidx, slot] = vv
+    cpos[bidx, slot] = pp
+
+
+def _decode_seq_cut(tp, cfg: ModelConfig, q, q0: int, cache, positions,
+                    window):
+    """One decode token over a dense cache cut over its sequence (the
+    token already written): this rank holds slots [c S, (c + 1) S) of
+    every kv head. Each rank attends every q head (gathered where they
+    are cut) over its slots through flash, in the cache's dtype (fp8
+    widened to q's), which also gives each row's log-sum-exp; the ranks'
+    partial outputs are summed in f32 weighted by exp(lse - the ranks'
+    largest lse): the attention over all slots. Returns this rank's
+    heads' output (b, 1, nq_loc, hd)."""
+    ck, cv, cpos = cache
+    nq = q.shape[2]
+    q_all = q if nq == cfg.n_heads else collectives.tp_all_gather(
+        q, tp.mesh, tp.axis, dim=2)
+    out, lse = K.attention_with_lse(q_all, ck.to(q.dtype), cv.to(q.dtype),
+                                    positions.contiguous(), cpos,
+                                    window=window)
+    lse = lse[..., 0]                          # (b, nq); +inf: no valid key
+    lse = lse.masked_fill(torch.isinf(lse), float("-inf"))
+    top = collectives.tp_all_reduce(lse, tp.mesh, tp.axis, op="max")
+    w = torch.exp(lse - top.masked_fill(torch.isinf(top), 0.0))
+    part = torch.where(w[..., None] > 0, out[:, 0].float() * w[..., None],
+                       0.0)
+    part = collectives.tp_all_reduce(
+        torch.cat([part, w[..., None]], dim=-1), tp.mesh, tp.axis)
+    den = part[..., -1:]
+    o = torch.where(den > 0, part[..., :-1] / den.clamp(min=1e-30), 0.0)
+    return o[:, None, q0:q0 + nq].to(q.dtype)
 
 
 def mlp_block(p, x, cfg: ModelConfig):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     up = shard(h @ p["wi"], "batch", None, "act_ff")
     gate = shard(h @ p["wg"], "batch", None, "act_ff")
-    out = (F.silu(gate) * up) @ p["wo"]
+    act = F.silu(gate) * up
+    tp = tensor_parallel()
+    out = act @ p["wo"] if tp is None else tp.contract(act, p["wo"], "ff",
+                                                       cfg.d_ff)
     return x + shard(out, "batch", None, "act_embed")

@@ -142,7 +142,7 @@ def decode_forward(params, cfg: ModelConfig, tokens, caches):
     (logits (B, vocab) f32, new_caches).
     """
     positions = caches["len"][:, None].to(torch.int32)          # (B, 1)
-    x = params["embed"][tokens.long()[:, None]]
+    x = T.embed_tokens(params, cfg, tokens[:, None])
     x = shard(x, "batch", None, "act_embed")
     h, new_caches, _ = T.run_decoder(params, cfg, x, positions,
                                      caches=caches)

@@ -18,7 +18,9 @@ order: no atomics, so a replay is bitwise equal to the eager step.
 The reference's three sharding modes (see partitioning.tp_rules):
 
 * MoE-TP and the expert-sharded SPMD mode run the experts here in one
-  process, their constraints going through ``shard``;
+  process, their constraints going through ``shard``; MoE-TP across
+  ranks (the baseline rules over a rank mesh, each expert's ``ff`` cut
+  over 'model') is not ported and raises ``NotImplementedError``;
 * the explicit expert-parallel branch (``rules.mesh`` set and the expert
   axis split, the reference's ``shard_map``) runs across ranks over
   ``torch.distributed``: ``rules.mesh`` is then a ``launch/mesh.py``
@@ -39,7 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.partitioning import current_rules, shard
+from repro_torch.models.params import moe_spec
+from repro_torch.models.partitioning import current_rules, refuse_cut, shard
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -81,6 +84,8 @@ def dispatch(eidx, n_experts: int):
 
 def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x + moe_out, aux_load_balance_loss f32 scalar)."""
+    refuse_cut("moe_block", lambda: moe_spec(cfg),
+               "MoE-TP across ranks (each expert's 'ff' over 'model')")
     moe = cfg.moe
     B, S, d = x.shape
     E, k = moe.n_experts, moe.top_k

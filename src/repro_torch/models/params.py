@@ -221,7 +221,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     slices over its dims), or None to keep it whole. Every leaf is still
     drawn in full, layer by layer, so a block holds the values of the
     whole tree's block (``launch/ranks.py``: a rank keeps only its
-    experts).
+    experts under the expert-parallel rules, and its block of every leaf
+    the tensor-parallel axis cuts under the baseline rules).
     """
     dev = resolve_device(device)
     if generator is None:

@@ -9,18 +9,32 @@ device and under the dry-run's production meshes.
 A partition spec is a ``PartitionSpec``: a tuple with one entry per
 tensor dim, each None, a mesh-axis name or a tuple of names, normalised
 as ``jax.sharding.PartitionSpec`` normalises its entries (a one-name
-tuple becomes the name, an empty one None). ``shard`` hands the entries
-it computes to ``_constrain``, the one place where a constraint would
-take effect: in one process every tensor is whole, so it returns the
-tensor as it is. Tensor- or expert-parallel work across processes
-replaces that function.
+tuple becomes the name, an empty one None). ``placement`` is the one
+rule of where a tensor lies: the rules' entry of each dim, dropped where
+its mesh axes do not divide the dim (the dry-run's ``sanitize``).
+
+``shard`` hands the placement it computes to ``_constrain``, which stays
+an annotation: it returns the tensor as it is, in one process and on a
+rank alike. Across ranks the placement is carried out where it changes
+what a rank computes, at the shard points of the dense path, by
+``TensorParallel`` (``tensor_parallel()`` gives this rank's, under the
+baseline rules with a rank mesh in ``rules.mesh``): a rank holds each
+leaf cut as its placement says, and the blocks call its helpers to
+gather columns that the activation wants whole, to all-reduce a
+contraction over cut rows, and to look up embedding rows cut over
+'vocab' (``launch/collectives.py`` issues and counts the collectives).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.launch import collectives
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -56,8 +70,10 @@ class ShardingRules:
 
     rules: Dict[str, MeshAxes] = field(default_factory=dict)
     axis_sizes: Dict[str, int] = field(default_factory=dict)
-    # the mesh of devices (launch/mesh.py) — required only for the
-    # explicit expert-parallel path (models/moe.py); None elsewhere
+    # the mesh of ranks (launch/mesh.py: a ProcessMesh, or a CountingMesh
+    # on the meta device) — set only to run across ranks: the explicit
+    # expert-parallel branch (models/moe.py) or tensor parallelism
+    # (``tensor_parallel``); None elsewhere
     mesh: object = None
 
     def spec(self, axes: Tuple[Optional[str], ...]) -> PartitionSpec:
@@ -180,31 +196,194 @@ def use_rules(rules: Optional[ShardingRules]):
 
 
 def _constrain(x, spec: PartitionSpec):
-    """Place ``x`` as ``spec`` says. One process holds every tensor whole,
-    so ``x`` comes back as it is."""
+    """The annotation of ``x``'s placement: ``x`` comes back as it is. In
+    one process every tensor is whole; across ranks the dense path's
+    blocks carry out their placements through ``TensorParallel``."""
     return x
 
 
-def shard(x, *axes: Optional[str]):
-    """Constrain ``x`` to the sharding implied by logical ``axes``.
-
-    No-op when no rules are active (``x`` itself comes back). Dims whose
-    size is not divisible by the mapped mesh-axis product are left
-    unsharded: forcing e.g. 8 whisper heads onto a 16-way model axis
-    would replicate the whole tensor.
-    """
-    rules = current_rules()
-    if rules is None:
-        return x
+def placement(rules: ShardingRules, axes: Tuple[Optional[str], ...],
+              shape) -> PartitionSpec:
+    """The mesh axes of each dim of a tensor of ``shape`` named ``axes``:
+    the rules' entry, dropped where the product of its mesh-axis sizes
+    does not divide the dim (forcing e.g. 8 whisper heads onto a 16-way
+    model axis would replicate the whole tensor). The dry-run's
+    ``sanitize`` rule, for activations and leaves alike."""
     entries = []
-    for dim, a in zip(x.shape, axes):
+    for dim, a in zip(shape, axes):
         m = rules.rules.get(a) if a is not None else None
         if m is None:
             entries.append(None)
             continue
         n = rules.size(a)
         entries.append(m if n <= 1 or dim % n == 0 else None)
-    return _constrain(x, P(*entries))
+    return P(*entries)
+
+
+def shard(x, *axes: Optional[str]):
+    """Constrain ``x`` to the sharding implied by logical ``axes``.
+
+    No-op when no rules are active (``x`` itself comes back); else the
+    placement (a dim the mapped mesh axes do not divide stays whole) goes
+    to ``_constrain``.
+    """
+    rules = current_rules()
+    if rules is None:
+        return x
+    return _constrain(x, placement(rules, axes, x.shape))
+
+
+def mesh_axes(entry) -> Tuple[str, ...]:
+    """The mesh-axis names of one entry of a spec."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def block_index(shape, entries, sizes: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that the rank at ``coords``
+    holds when dim i is cut over the mesh axes of ``entries[i]`` (row-
+    major over several axes); a dim those axes do not divide stays
+    whole."""
+    idx = []
+    for dim, entry in zip(shape, tuple(entries) + (None,) * len(shape)):
+        axes = mesh_axes(entry)
+        n = math.prod(sizes[a] for a in axes)
+        if n == 1 or dim % n:
+            idx.append(slice(None))
+            continue
+        pos = 0
+        for a in axes:
+            pos = pos * sizes[a] + coords[a]
+        step = dim // n
+        idx.append(slice(pos * step, (pos + 1) * step))
+    return tuple(idx)
+
+
+def kv_heads_cut(rules: Optional[ShardingRules], n_kv_heads: int) -> bool:
+    """Whether the KV caches are cut over their heads (classic TP): the
+    'kv_heads' mapping splits more than one way and divides the kv heads.
+    Else a dense cache is cut over its sequence on the same mesh axis
+    (flash-decode style) and a paged pool stays whole."""
+    return (rules is not None and rules.size("kv_heads") > 1
+            and n_kv_heads % rules.size("kv_heads") == 0)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism across ranks (the baseline rules over a rank mesh)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """This rank's share of the baseline rules' tensor-parallel axis:
+    ``ways`` ranks along mesh axis ``axis`` (what 'q', 'kv', 'ff' and
+    'vocab' map to), this one at ``coord``. A leaf or activation dim is
+    cut when its logical axis maps to ``axis`` and ``ways`` divides it
+    (``placement``'s rule); a rank holds block ``coord`` of a cut dim."""
+
+    rules: ShardingRules
+    mesh: Any
+    axis: str
+    ways: int
+    coord: int
+
+    def cut(self, logical: str, dim: int) -> bool:
+        return (self.rules.rules.get(logical) == self.axis
+                and dim % self.ways == 0)
+
+    def block(self, dim: int) -> Tuple[int, int]:
+        """(start, size) of this rank's block of a cut dim."""
+        n = dim // self.ways
+        return self.coord * n, n
+
+    def heads(self, y, n_heads: int, head_dim: int, w_logical: str,
+              act_logical: str):
+        """``y = x @ w``, w's columns (``w_logical``, n_heads x head_dim
+        whole) this rank's block where they are cut. Returns (y split into
+        heads, its first head): this rank's heads where the activation's
+        heads (``act_logical``) are cut, else every head, gathered over
+        the axis where only the weight's columns are (a head count the
+        axis does not divide, or a block that splits a head)."""
+        act_cut = self.cut(act_logical, n_heads)
+        if self.cut(w_logical, n_heads * head_dim) and not act_cut:
+            y = collectives.tp_all_gather(y, self.mesh, self.axis, dim=-1)
+        first = self.block(n_heads)[0] if act_cut else 0
+        return y.reshape(y.shape[:-1] + (-1, head_dim)), first
+
+    def contract(self, x, w, w_logical: str, rows: int):
+        """``x @ w`` summed over the ranks where w's ``rows`` (named
+        ``w_logical``) are cut: a whole ``x`` gives its columns of this
+        rank's block first. With w whole it is the plain product. The
+        partial products are summed in x's dtype, as the reference's
+        program sums them (bf16 partials: one rounding each, then the
+        sum's)."""
+        if not self.cut(w_logical, rows):
+            return x @ w
+        if x.shape[-1] == rows:
+            start, n = self.block(rows)
+            x = x[..., start:start + n]
+        return collectives.tp_all_reduce(x @ w, self.mesh, self.axis)
+
+    def embed(self, table, tokens, vocab: int):
+        """Rows ``tokens`` of the embedding ``table`` (vocab whole rows):
+        where its rows are cut over 'vocab', each rank looks up the tokens
+        of its block (0 elsewhere) and the sum over the ranks is the
+        lookup."""
+        if not self.cut("vocab", vocab):
+            return table[tokens]
+        start, n = self.block(vocab)
+        local = tokens - start
+        mine = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros(
+            (), dtype=x.dtype, device=x.device))
+        return collectives.tp_all_reduce(x, self.mesh, self.axis)
+
+
+def tensor_parallel(rules: Optional[ShardingRules] = None
+                    ) -> Optional[TensorParallel]:
+    """This rank's ``TensorParallel`` under ``rules`` (the current ones by
+    default), or None where each rank holds its dense leaves whole: in
+    one process (no rank mesh in the rules), under the expert-parallel
+    rules (their branch cuts the experts only) or fsdp's (ZeRO over
+    'data'), and where the tensor-parallel axis has one rank."""
+    rules = current_rules() if rules is None else rules
+    mesh = getattr(rules, "mesh", None)
+    if mesh is None or not hasattr(mesh, "coordinate"):
+        return None
+    r = rules.rules
+    if r.get("expert") is not None or r.get("embed") is not None:
+        return None
+    axis = r.get("q")
+    ways = rules.axis_sizes.get(axis, 1) if isinstance(axis, str) else 1
+    if ways == 1:
+        return None
+    if r.get("kv_seq") is not None:
+        raise NotImplementedError(
+            "tensor parallelism across ranks runs the baseline rules with "
+            "decode_kv='heads'; decode_kv='seq' (the paged pool cut over "
+            "its pages) is not ported")
+    return TensorParallel(rules, mesh, axis, ways, mesh.coordinate(axis))
+
+
+def refuse_cut(what: str, specs, slice_note: str) -> None:
+    """Raise ``NotImplementedError`` where tensor parallelism across ranks
+    is live and its axis would cut one of ``specs()`` (a block's
+    ``ParamSpec``s by name, built only then): ``what`` runs only with
+    whole leaves on every rank; ``slice_note`` names the work that ports
+    it."""
+    tp = tensor_parallel()
+    if tp is None:
+        return
+    for name, spec in specs().items():
+        if any(tp.axis in mesh_axes(e)
+               for e in placement(tp.rules, spec.axes, spec.shape)):
+            raise NotImplementedError(
+                f"{what}: tensor parallelism across ranks would cut "
+                f"{name} {tuple(spec.shape)} over '{tp.axis}' "
+                f"({tp.ways} ways); {slice_note} is not ported "
+                f"(ROADMAP.md Queue 1)")
 
 
 def logical_to_pspec(axes: Tuple[Optional[str], ...],

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.partitioning import shard
+from repro_torch.models.params import ssm_spec
+from repro_torch.models.partitioning import refuse_cut, shard
 
 
 class SSMCache(NamedTuple):
@@ -94,6 +95,9 @@ def ssm_block(p, x, cfg: ModelConfig, *,
       leave the recurrent state untouched.
     x: (B,S,d). Returns (out, cache).
     """
+    refuse_cut("ssm_block", lambda: ssm_spec(cfg),
+               "the SSM block under tensor parallelism ('inner' over "
+               "'model')")
     ssm = cfg.ssm
     d = cfg.d_model
     inner = ssm.inner_dim(d)

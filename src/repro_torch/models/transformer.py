@@ -21,8 +21,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.partitioning import (current_rules,
-                                             logical_to_pspec, shard,
+from repro_torch.models.params import attn_spec, mlp_spec
+from repro_torch.models.partitioning import (current_rules, kv_heads_cut,
+                                             logical_to_pspec, refuse_cut,
+                                             shard, tensor_parallel,
                                              use_rules)
 
 
@@ -115,8 +117,7 @@ def cache_pspecs(cfg: ModelConfig, rules, layout: str = "dense"
     """
     lp = logical_to_pspec
     paged = layout == "paged"
-    head_ok = (rules is not None and rules.size("kv_heads") > 1 and
-               cfg.n_kv_heads % rules.size("kv_heads") == 0)
+    head_ok = kv_heads_cut(rules, cfg.n_kv_heads)
     seq_pref = rules is not None and rules.size("kv_seq") > 1
     if paged:
         # (repeats, n_pages, page, nkv, hd)
@@ -209,7 +210,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens,
     Multimodal embeddings are projected to d_model and PREPENDED to the
     text sequence. Returns (x (B, S, d), positions (B, S) int32).
     """
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(params, cfg, tokens)
     if mm_embeds is not None:
         mm = mm_embeds.to(x.dtype) @ params["projector"]
         x = torch.cat([mm, x], dim=1)
@@ -217,6 +218,16 @@ def embed_inputs(params, cfg: ModelConfig, tokens,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).repeat(b, 1)
     return shard(x, "batch", None, "act_embed"), positions
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """The embedding rows of ``tokens``; under tensor parallelism a
+    rank's lookup of its rows of the table, summed over the ranks where
+    'vocab' cuts them."""
+    tp = tensor_parallel()
+    if tp is None:
+        return params["embed"][tokens.long()]
+    return tp.embed(params["embed"], tokens.long(), cfg.vocab)
 
 
 def scatter_mm_features(x, positions, mm_feats, mm_start):
@@ -253,6 +264,9 @@ def lm_logits(params, cfg: ModelConfig, h):
 def run_encoder(params, cfg: ModelConfig, frames):
     """frames: (B, T, feature_dim) stub embeddings -> ((B, T, d_model),
     positions (B, T) int32). Non-causal self-attention in every layer."""
+    refuse_cut("run_encoder", lambda: {**attn_spec(cfg), **{
+        "mlp " + k: sp for k, sp in mlp_spec(cfg).items()}},
+        "the encoder-decoder (whisper) under tensor parallelism")
     enc = params["encoder"]
     x = frames.to(params["projector"].dtype) @ params["projector"]
     x = x + enc["pos_embed"][None, :x.shape[1]].to(x.dtype)

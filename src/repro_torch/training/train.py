@@ -59,7 +59,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
         return metrics, map_tree(lambda _: next(it), params)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
-        mesh = _process_mesh()
+        mesh = _process_mesh(cfg)
         if num_microbatches <= 1:
             metrics, grads = value_and_grad(params, batch)
         else:
@@ -91,14 +91,21 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
     return train_step
 
 
-def _process_mesh():
+def _process_mesh(cfg: ModelConfig):
     """The live process mesh of the current rules, or None in one process.
 
     Across ranks the step runs at 1 x ep only: every rank holds the same
     rows and computes the same loss, and the expert-parallel branch's
     exchanges leave each rank the whole gradient of every leaf it holds
     (``launch/collectives.py``). Over data ranks the gradients of the
-    leaves they share would have to be summed, which nothing does yet."""
+    leaves they share would have to be summed, which nothing does yet;
+    under tensor parallelism (a dense leaf cut over 'model') the
+    collectives' transposes are missing too: both raise."""
+    partitioning.refuse_cut(
+        "train_step", lambda: {f"leaf {i}": s for i, s in enumerate(
+            flatten(param_structure(cfg)))},
+        "training across ranks (the data-parallel gradient reduction and "
+        "TP's transposes)")
     rules = partitioning.current_rules()
     mesh = getattr(rules, "mesh", None)
     if mesh is None or not hasattr(mesh, "group"):

@@ -201,11 +201,17 @@ def test_run_case_records_and_skips():
     assert res["memory"]["argument_bytes"] == sum(
         res["memory"]["argument_bytes_by_arg"])
     assert res["memory"]["peak_bytes"] is None
-    assert res["collective_bytes"] is None
+    # a dense decoder's decode under the baseline rules: rank 0's
+    # collectives counted on meta, over NVLink's rate
+    assert res["collective_reason"] is None
+    assert set(res["collective_bytes"]) == {"all-reduce", "all-gather"}
     r = res["roofline"]
-    assert r["collective_s"] is None and r["compute_s"] > 0
-    assert r["bottleneck"] == ("compute" if r["compute_s"] >= r["memory_s"]
-                               else "memory")
+    assert r["collective_s"] == sum(res["collective_bytes"].values()) / \
+        dryrun.NVLINK_BW
+    assert r["compute_s"] > 0
+    assert r["bottleneck"] == max(
+        ("compute", "memory", "collective"),
+        key=lambda k: r[f"{k}_s"])
     assert res["outputs_match_donated"] and res["n_chips"] == 256
     assert dryrun.report("t", res).startswith("OK   t: run=")
     skip = dryrun.run_case("glm4-9b", "long_500k", save=False)

@@ -173,6 +173,23 @@ Phases (every failure raises and ends the run with a non-zero code):
      each gradient kernel's share of the step; then a checkpoint saved,
      restored and one more step, bitwise equal to the step without the
      round trip;
+  7r. the train step across ranks (``launch/ranks.py``; the case
+     builders' train case under the baseline rules, each rank its block
+     of every leaf and AdamW moment and its share of each microbatch):
+     smollm-135m at full size, bf16, 7t's batch of 4 x 2048, two steps
+     at 2 x 1 (pure data parallel: the gradients all-reduced in one flat
+     f32 buffer over the two microbatches) and at 1 x 2 (q and K/V
+     columns gathered, 'ff' and 'vocab' cut), both ranks on one card
+     over gloo; where 4 cards exist, over NCCL with a card a rank,
+     smollm-135m at 2 x 2, glm4-9b (2 layers) at 1 x 4 and mixtral-8x7b
+     (1 layer) under the expert-parallel rules at 2 x 2. Held on every
+     rank against one process of the same plan in bf16 and in f32: the
+     loss of each step, bitwise equal across ranks; the digests of the
+     rank's blocks of the new parameters, mu and nu no farther from the
+     f32 run's than one bf16 process's; flash's forward and gradient
+     launches; the collective bytes of their closed form
+     (``_train_bytes``); seconds a step against one process's, and the
+     first step traced on rank 0;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases,
      and phase 7t's step time, tokens/s and peak memory.
 Every serving cluster models its transfer charges on the H100 cost
@@ -185,7 +202,7 @@ kernel, the card's name and power limit, and {"ok": true, "device":
 {...}}.
 
 ``--phases`` runs a subset (``--phases 1,2``: build and kernel checks;
-``--phases 1,7,7t``: training). Serving launches no gradient kernel.
+``--phases 1,7,7t``: training; ``--phases 1,7r``: training across ranks). Serving launches no gradient kernel.
 """
 from __future__ import annotations
 
@@ -292,6 +309,20 @@ TP_FOUR_CARDS = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)),
 # the ranks' decode step traced (rank 0's printed): the kv heads cut and
 # the cache cut over its sequence
 TP_TRACED = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)))
+# phase 7r: the train step across ranks, TRAIN_RANK_STEPS steps a run:
+# (arch, mesh, layers (None: all), batch x length, expert-parallel rules)
+TRAIN_RANK_STEPS = 2
+TRAIN_ONE_CARD = (("smollm-135m", (2, 1), None, (TRAIN_BATCH, TRAIN_SEQ),
+                   False),
+                  ("smollm-135m", (1, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
+                   False))
+# one process, which the ranks are held to, keeps bf16 weights, their f32
+# gradient sum and AdamW's two f32 moments, old and new: about 92 GB for
+# glm4-9b at 8 layers and more for mixtral at 4, so 2 and 1 layers
+TRAIN_FOUR_CARDS = (("smollm-135m", (2, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
+                     False),
+                    ("glm4-9b", (1, 4), 2, (2, 2048), False),
+                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), True))
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -995,6 +1026,10 @@ BWD_CASES = {
     # over the encoder's 1500 frames, 4 sequences
     "whisper decoder cross, non-causal": (4, 448, 1500, 8, 8, 64, None, False,
                                           448),
+    # a glm4-9b rank at 1 x 4 in phase 7r: its 8 q heads over one gathered
+    # kv head of 128, 2 sequences of 2048
+    "glm4 rank at 1 x 4, causal": (2, 2048, 2048, 8, 1, 128, None, True,
+                                   2048),
 }
 
 
@@ -1281,11 +1316,13 @@ def model_parity(torch, dev):
         """The GPU prefill's fp8 K/V bytes are ``to_kv`` on the CPU (the
         reference's cast, held bitwise to JAX's by the CPU tests) of the
         GPU's own f32 K/V from the f32 run; where they differ from the
-        CPU prefill's bytes, the two sides' f32 K/V differ too and the
-        bytes are neighbouring values (+0 and -0 being one). Page 0
-        (trash) of a pool is not compared."""
+        CPU prefill's bytes, the f32 K/V behind them differ bitwise (the
+        two sides' f32 runs, +0 and -0 counted apart; or the CPU's f32
+        and fp8 prefills, whose f32 K/V the CPU need not repeat to the
+        bit) and the bytes are neighbouring values (+0 and -0 being
+        one). Page 0 (trash) of a pool is not compared."""
         trash = 1 if layout == "paged" else 0
-        n_diff = n_zero = n_all = 0
+        n_diff = n_zero = n_all = n_cpu = 0
         for g8, c8, c32, g32 in zip(cache_tensors(gpu), cache_tensors(cpu),
                                     cache_tensors(cpu32), gpu32):
             if g8.dtype != f8:
@@ -1297,19 +1334,30 @@ def model_parity(torch, dev):
             bad = int((g8 != want).sum())
             assert bad == 0, (layout, "GPU fp8 bytes != to_kv of its f32 "
                               "K/V", bad)
+            cpu_moved = c8 != to_kv(c32, f8).view(torch.uint8)
+            steps = (value_order(c8[cpu_moved])
+                     - value_order(to_kv(c32, f8).view(torch.uint8)[
+                         cpu_moved])).abs()
+            assert bool((steps <= 1).all()), (layout, "CPU prefills",
+                                              steps.max().item())
             diff = g8 != c8
-            assert bool((c32[diff] != g32[diff]).all()), (layout, "fp8 bytes "
-                                                          "differ where the "
-                                                          "f32 K/V agree")
+            moved = (c32.view(torch.int32) != g32.view(torch.int32)) | \
+                cpu_moved
+            assert bool(moved[diff].all()), (
+                layout, "fp8 bytes differ where the f32 K/V agree",
+                int((diff & ~moved).sum()))
             steps = (value_order(g8[diff]) - value_order(c8[diff])).abs()
             assert bool((steps <= 1).all()), (layout, steps.max().item())
             n_diff += int(diff.sum())
             n_zero += int((steps == 0).sum())
             n_all += diff.numel()
+            n_cpu += int(cpu_moved.sum())
         log(f"    {layout} fp8: the GPU's K/V bytes equal to_kv of its f32 "
             f"K/V; {n_diff} of {n_all} bytes differ from the CPU prefill's "
             f"where the f32 K/V differ, each a neighbouring value ({n_zero} "
-            f"of them +0 against -0); the GPU decodes over the CPU's")
+            f"of them +0 against -0); {n_cpu} bytes of the CPU's fp8 "
+            f"prefill differ from to_kv of its f32 prefill, each a "
+            f"neighbouring value; the GPU decodes over the CPU's")
 
     def value_order(b):
         """e4m3 bytes as their rank on the number line (+0 and -0 one
@@ -2400,6 +2448,218 @@ def tensor_parallel_ranks(torch, dev, smi):
     return out
 
 
+def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
+    """The closed form of the collective result bytes a rank moves in one
+    train step of ``plan`` at ``mesh`` (data, model), remat on,
+    activations and their gradients in bf16, ``n_micro`` microbatches,
+    the head's cross entropy over ``chunk``-token chunks (0: whole),
+    ``held`` gradient elements on the rank. Per microbatch: the
+    embedding's all-reduce; a layer's q / k / v gathers and its two
+    row-cut all-reduces, issued again by remat's recompute but for the
+    MLP's sum (past the last tensor the backward saves); in the backward
+    the block inputs' all-reduces ("f"), the sliced attention output's
+    all-gather and, where the gathered K/V feed the rank's own q heads,
+    their reduce-scatters; the vocab-parallel cross entropy's maxima and
+    its sums (f32) and its input's all-reduce; the global count (f32)
+    over the data ranks. Under the expert-parallel rules a MoE layer's
+    output gathered over the expert axis (forward, recompute) and its
+    input slice's gradient gathered, its aux sums (2 E, f32) over the
+    data ranks, forward and recompute. Per step: the data-parallel
+    reduction of every gradient (f32 over microbatches, bf16 over one)
+    and the clip's norm (f32) over the cut leaves."""
+    from repro_torch.models import moe as MOE
+    d_ranks, m = mesh
+    b, s = plan.train[:2]
+    rows = b // (d_ranks * n_micro)
+    tokens, f = rows * s, 2
+    d, hd, layers = cfg.d_model, cfg.head_dim, cfg.n_layers
+    text = s - 1
+    if chunk and text > chunk:
+        text = -(-text // chunk) * chunk
+    ar = ag = rs = 0
+    if plan.expert_parallel:
+        E = cfg.moe.n_experts
+        if m > 1:
+            ag += layers * 3 * rows * E * MOE.capacity(cfg, s) * d * f
+        if d_ranks > 1:
+            ar += layers * 2 * 2 * E * 4
+    elif m > 1:
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        q_heads = cfg.n_heads % m == 0
+        unit = tokens * d * f
+        if q % m == 0:
+            ar += layers * 3 * unit
+            if not q_heads:
+                ag += layers * 3 * tokens * q * f
+        if kv % m == 0 and cfg.n_kv_heads % m:
+            ag += layers * 2 * 2 * tokens * kv * f
+            if q_heads:
+                rs += layers * 2 * tokens * kv // m * f
+        if cfg.d_ff % m == 0:
+            ar += layers * 2 * unit
+        if cfg.vocab % m == 0:
+            ar += unit + rows * text * 3 * 4 + rows * text * d * f
+    if d_ranks > 1:
+        ar += 2 * 4
+    ar, ag, rs = n_micro * ar, n_micro * ag, n_micro * rs
+    if d_ranks > 1:
+        ar += held * (4 if n_micro > 1 else 2)
+    if m > 1:
+        ar += 4
+    return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag),
+                              ("reduce-scatter", rs)) if v}
+
+
+def _train_run(torch, dev, arch, mesh, backend, layers, shape,
+               expert_parallel) -> dict:
+    """One model at one mesh for phase 7r: TRAIN_RANK_STEPS train steps of
+    the case builders' train case (``Plan.train``: ``train_plan``'s
+    microbatches and loss chunk at the mesh, remat) in one process, bf16
+    and f32 (their outputs kept on the host, their card memory freed),
+    then on the ranks. Each rank: its loss each step bitwise equal to the
+    other ranks' and within the bf16 rule of one process's; the
+    ``digest``s (each leaf's sum and sum of squares) of its blocks of the
+    new parameters and AdamW moments no farther from the f32 run's than
+    one bf16 process's (``_anchored``; mu is 0.1 times the clipped
+    gradient after the first step, so every gradient leaf is held); two
+    flash forwards (remat's recompute) and one flash gradient a layer a
+    microbatch; the collective bytes of ``_train_bytes``. Seconds a step
+    (the first warms the second), and the first step traced once more on
+    every rank (rank 0's printed). Returns the seconds, counts and
+    launches."""
+    import shutil
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import ranks as R
+    from repro_torch.launch.mesh import MeshDesc
+    from repro_torch.launch.specs import train_plan
+    from repro_torch.models.params import abstract_params, flatten
+
+    desc = MeshDesc(mesh, ("data", "model"))
+    plan = R.Plan(arch, reduced=False, layers=layers, dtype="bfloat16",
+                  expert_parallel=expert_parallel, train=shape,
+                  train_steps=TRAIN_RANK_STEPS)
+    cfg = R.plan_config(plan)
+    rules = R.block_rules(plan, desc)
+    n_micro, chunk = train_plan(rules, InputShape("train", shape[1], shape[0],
+                                                  "train"))
+    tag = f"{cfg.name} at {mesh[0]} x {mesh[1]}"
+    out = {"backend": backend, "micro": n_micro}
+    roles = R.OUT_ROLES["train"][:2]
+
+    def steps(res):
+        return [res["train"]] + res["train_more"]
+
+    def single(p):
+        """Each step's loss and seconds, and the digests of each rank's
+        blocks of its new parameters and AdamW state (made on the card)."""
+        res = R.run_plan(p, desc, dev)
+        recs = [dict(s=rec["s"], loss=float(rec["out"][2]["loss"]), blocks=[
+            tuple(map(R.digest, R.rank_block(
+                cfg, roles, (None, None), rec["out"][:2], rules,
+                R.coordinates(desc, r)))) for r in range(desc.size)])
+            for rec in steps(res)]
+        del res
+        release(torch)
+        return recs
+
+    t0 = time.perf_counter()
+    one = single(plan)
+    f32 = single(dataclasses.replace(plan, dtype="float32"))
+    out["one_process_s"] = time.perf_counter() - t0
+    run_dir = ROOT / "build" / f"ranks_7r_{cfg.name}_{mesh[0]}x{mesh[1]}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranked = dataclasses.replace(plan, trace=True, digest=True)
+    got = [steps(g[0]) for g in R.run_ranks(
+        desc, [("plan", dict(plan=ranked))], backend=backend, device=dev.type,
+        run_dir=run_dir, timeout=RANKS_TIMEOUT)]
+    out["ranks_s"] = time.perf_counter() - t0
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    held = sum(t.numel() for t in flatten(R.rank_block(
+        cfg, ("params",), (None,), (abstract_params(cfg),), rules,
+        R.coordinates(desc, 0))[0]))
+    want_bytes = _train_bytes(cfg, plan, mesh, n_micro, chunk, held)
+    out["steps"] = []
+    for i, (w, t) in enumerate(zip(one, f32)):
+        loss = [float(g[i]["out"][2]["loss"]) for g in got]
+        want = w["loss"]
+        log(f"  {tag}, step {i + 1}: loss {loss[0]:.6f} on every rank "
+            f"(one process bf16 {want:.6f}, f32 {t['loss']:.6f})")
+        assert all(x == loss[0] for x in loss), (tag, i, loss)
+        assert math.isfinite(loss[0]) and abs(loss[0] - want) <= \
+            TOL["bfloat16"]["rtol"] * abs(want), (tag, i, loss, want)
+        for r, res in enumerate(got):
+            a = _anchored(torch, res[i]["out"][:2], w["blocks"][r],
+                          t["blocks"][r])
+            n = res[i]["launches"]
+            assert n["flash_attention"] == 2 * cfg.n_layers * n_micro and \
+                n["flash_attention_bwd"] == cfg.n_layers * n_micro, (tag, n)
+            coll = res[i]["collectives"]
+            assert coll == want_bytes, (tag, r, coll, want_bytes)
+            log(f"    rank {r}: {res[i]['s']:.4f} s (one process "
+                f"{w['s']:.4f} s); digests of its blocks of the new "
+                f"parameters, mu, nu: max |rank - one process| {a[0]:.3e}, "
+                f"outside the bf16 rule {a[1]} (one process against f32: "
+                f"{a[2]}), distance from f32 max / mean {a[3]:.3f} / "
+                f"{a[4]:.3f} of one process's; {n['flash_attention']} flash "
+                f"forward, {n['flash_attention_bwd']} flash_attention_bwd; "
+                f"collectives {coll} = closed form, over "
+                f"{sum(res[i]['calls'].values())} calls")
+        out["steps"].append({"one_process_s": w["s"],
+                             "rank_s": [g[i]["s"] for g in got],
+                             "loss": loss[0]})
+    tr = got[0][0]["trace"]
+    rest = tr["device_ms"] - tr["nccl_ms"]
+    log(f"  {tag}, step 1, rank 0 traced (torch.profiler, the step once "
+        f"more): wall {tr['wall_ms']:.3f} ms, device {tr['device_ms']:.3f} "
+        f"ms in {tr['launches']} kernel launches, of which NCCL's kernels "
+        f"{tr['nccl_ms']:.3f} ms; the other kernels {rest:.3f} ms, busy "
+        f"{rest / tr['wall_ms']:.3f}")
+    for ms, n, key in tr["top"]:
+        log(f"    {ms:9.3f} ms {n:5d}x  {key}")
+    out["collectives"] = want_bytes
+    out["launches"] = {k: got[0][0]["launches"][k]
+                       for k in ("flash_attention", "flash_attention_bwd")}
+    return out
+
+
+def train_ranks(torch, dev, smi):
+    """Phase 7r: the train step across ranks (``launch/ranks.py``: each
+    rank its block of every leaf and AdamW moment and its rows of each
+    microbatch; the data-parallel reduction, TP's transposes, the global
+    loss), held on every rank to one process of the same plan
+    (``_train_run``). On one card: smollm-135m at full size (30 layers),
+    bf16, 7t's batch of 4 x 2048, at 2 x 1 (pure data parallel) and 1 x 2
+    (q and K/V columns gathered, attention on every head on both ranks,
+    'ff' and 'vocab' cut), both ranks on the card over gloo. Where 4
+    cards exist, over NCCL with a card a rank: smollm-135m at 2 x 2,
+    glm4-9b at 1 x 4 (its 8 local q heads over one gathered kv head of
+    128, whose gradient is reduce-scattered) and mixtral-8x7b under the
+    expert-parallel rules at 2 x 2, each cut to the layers that one
+    process's AdamW step holds on 80 GB (TRAIN_FOUR_CARDS)."""
+    n_cards = torch.cuda.device_count()
+    four = n_cards >= 4
+    backend = "nccl" if four else "gloo"
+    out = {"backend": backend, "cards": n_cards}
+    for arch, mesh, layers, shape, ep in (TRAIN_FOUR_CARDS if four
+                                          else TRAIN_ONE_CARD):
+        t0 = time.perf_counter()
+        run = out[f"{arch} {mesh[0]}x{mesh[1]}"] = _train_run(
+            torch, dev, arch, mesh, backend, layers, shape, ep)
+        log(f"  [7r] {arch} at {mesh[0]} x {mesh[1]} over {backend}: "
+            f"{time.perf_counter() - t0:.1f} s (one process, bf16 and f32: "
+            f"{run['one_process_s']:.1f} s; the ranks, started to joined: "
+            f"{run['ranks_s']:.1f} s); on {smi}")
+        release(torch)
+    if not four:
+        log(f"  [7r] the four-card part (NCCL: smollm-135m at 2 x 2, "
+            f"glm4-9b at 1 x 4, mixtral-8x7b at 2 x 2) did not run: "
+            f"{n_cards} card(s), 4 needed")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3c: CUDA-graph replays against eager steps
 # ---------------------------------------------------------------------------
@@ -3077,7 +3337,7 @@ def trace_step(torch, step_fn, params, state, batch):
 
 ALL_PHASES = ("1", "2", "3", "3b", "3m", "3g", "3w", "3c", "3s", "3d", "3e",
               "3t", "4", "5", "5f", "4m", "5m", "4g", "5g", "4w", "5w", "4b", "7",
-              "7t")
+              "7t", "7r")
 
 
 def main() -> int:
@@ -3422,6 +3682,14 @@ def main() -> int:
         train = train_full(torch, dev)
         release(torch)
         log(f"[7t] {time.perf_counter() - t0:.1f} s")
+    ranked_train = None
+    if "7r" in phases:
+        log(f"[7r] the train step across ranks: the case builders' train "
+            f"case, {TRAIN_RANK_STEPS} steps, against one process")
+        t0 = time.perf_counter()
+        ranked_train = train_ranks(torch, dev, smi)
+        new_s["7r"] = time.perf_counter() - t0
+        log(f"[7r] {new_s['7r']:.1f} s")
 
     # -- 6. numbers ------------------------------------------------------------
     for mode, st in serve_stats.items():
@@ -3462,6 +3730,12 @@ def main() -> int:
             library_call_ms=r.get("library_call_ms")))
         if "device_kernels" in r:
             rows[-1]["device_kernels"] = r["device_kernels"]
+        if ranked_train and kname in ("flash_attention",
+                                      "flash_attention_bwd"):
+            # rank 0's launches in one train step of each 7r run
+            rows[-1]["launches_7r"] = {
+                run: v["launches"][kname] for run, v in ranked_train.items()
+                if isinstance(v, dict)}
         if kname == "flash_attention_bwd":
             # the training shape of 7t above; the other cases below
             rows[-1]["launches_in"] = "7t"

@@ -18,26 +18,37 @@ result of the right shape (the dry-run's collective term, run on one
 rank's block under a ``launch/mesh.py`` ``CountingMesh``).
 
 The differentiable forms carry the transpose that the meaning of their
-operands asks for:
+operands asks for. The convention: a tensor replicated along an axis
+carries its whole gradient on every rank there (every rank computes the
+same loss from it, counted once); a tensor cut along it carries, on each
+rank, the gradient of its block.
 
 * ``gather_replicated``: an all-gather whose consumers are replicated
-  along the axis (every rank there computes the same loss, counted
-  once); its gradient is this rank's slice, not a sum.
-* ``gather_zero``: the all-gather of a ZeRO shard, used by ranks whose
-  losses differ and are summed into the global loss; its gradient is the
+  along the axis; its gradient is this rank's slice, not a sum.
+* ``gather_zero``: an all-gather whose consumers differ from rank to
+  rank (a ZeRO shard, or K/V columns read by each rank's own q heads),
+  so that each rank's gradient is a partial sum; its gradient is the
   reduce-scatter (the sum) of theirs.
 * ``take_slice``: this rank's slice of a tensor replicated along the
   axis; its gradient is the all-gather of the slices' gradients, so that
   what lies below it receives the whole gradient on every rank.
+* ``tp_enter`` (Megatron's "f"): a replicated tensor entering products
+  with this rank's cut weights; identity in the forward, the all-reduce
+  of the ranks' partial gradients in the backward.
+* ``tp_all_reduce``: the sum of the ranks' partial results, whose
+  consumers are replicated; its gradient passes through.
 
-The tensor-parallel forms ``tp_all_gather`` and ``tp_all_reduce`` (the
-dense path's, ``models/partitioning.TensorParallel``) serve inference
-only: a gradient that reaches one raises ``NotImplementedError``, since
-training across ranks, with TP's transposes, is not ported.
+``serving_only`` runs a collective of the sequence-cut decode combine
+(``models/layers.py``), which no gradient may pass: it raises
+``NotImplementedError`` when one reaches it.
 
 Only list-form ``all_gather``, list-form ``reduce_scatter`` and
-``all_reduce`` are called. gloo takes the first and the last on CUDA
-tensors too (staged through host memory), NCCL takes all three.
+``all_reduce`` are called. NCCL takes all three, and so does gloo, on
+CUDA tensors too (staged through host memory; its reduce-scatter on CUDA
+tensors was checked on an H100 with torch 2.11).
+
+``all_reduce`` also takes a tuple of axes (the batch axes of the data-
+parallel reduction, "pod" and "data"); the others one axis each.
 """
 from __future__ import annotations
 
@@ -75,8 +86,23 @@ def _record(kind: str, result: torch.Tensor) -> None:
     _calls[kind] += 1
 
 
-def _size(mesh, axis: str) -> int:
-    return mesh.axis_sizes[axis]
+def _axes(mesh, axis) -> tuple:
+    """The mesh axes ``axis`` names (one name or a tuple of names) that
+    hold more than one rank."""
+    names = axis if isinstance(axis, tuple) else (axis,)
+    return tuple(a for a in names if mesh.axis_sizes[a] > 1)
+
+
+def _size(mesh, axis) -> int:
+    n = 1
+    for a in _axes(mesh, axis):
+        n *= mesh.axis_sizes[a]
+    return n
+
+
+def _group(mesh, axis):
+    axes = _axes(mesh, axis)
+    return mesh.group(axes[0] if len(axes) == 1 else axes)
 
 
 def _meta(x: torch.Tensor) -> bool:
@@ -117,10 +143,11 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str,
     return out
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str,
+def all_reduce(x: torch.Tensor, mesh, axis,
                op: str = "sum") -> torch.Tensor:
     """The sum (``op`` "sum") or the maximum ("max") of the ranks' ``x``
-    along ``axis`` (a new tensor)."""
+    along ``axis`` (a name, or a tuple of names: the ranks that differ
+    from this one only along those axes), a new tensor."""
     import torch.distributed as dist
     if _size(mesh, axis) == 1:
         return x
@@ -128,7 +155,7 @@ def all_reduce(x: torch.Tensor, mesh, axis: str,
     if not _meta(x):
         dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                                  "max": dist.ReduceOp.MAX}[op],
-                        group=mesh.group(axis))
+                        group=_group(mesh, axis))
     _record("all-reduce", out)
     return out
 
@@ -172,6 +199,27 @@ class _TakeSlice(torch.autograd.Function):
         return all_gather(g, *ctx.args), None, None, None
 
 
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, *ctx.args), None, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def gather_replicated(x, mesh, axis: str, dim: int) -> torch.Tensor:
     if _size(mesh, axis) == 1:
         return x
@@ -190,9 +238,27 @@ def take_slice(x, mesh, axis: str, dim: int) -> torch.Tensor:
     return _TakeSlice.apply(x, mesh, axis, dim)
 
 
+def tp_enter(x, mesh, axis: str) -> torch.Tensor:
+    """``x`` (replicated along ``axis``) as the input of products with
+    this rank's cut weights: itself, whose gradient is the sum over the
+    ranks of theirs."""
+    if _size(mesh, axis) == 1:
+        return x
+    return _Enter.apply(x, mesh, axis)
+
+
+def tp_all_reduce(x, mesh, axis) -> torch.Tensor:
+    """The sum over the ranks along ``axis`` (a name or a tuple) of their
+    ``x``, a result every rank there consumes alike: its gradient passes
+    through to each rank's ``x``."""
+    if _size(mesh, axis) == 1:
+        return x
+    return _SumReplicated.apply(x, mesh, axis)
+
+
 class _Inference(torch.autograd.Function):
-    """A collective of the tensor-parallel forward, which no gradient may
-    pass: its transpose is the next slice's."""
+    """A collective of the sequence-cut decode combine, which no gradient
+    may pass."""
 
     @staticmethod
     def forward(ctx, x, fn, args):
@@ -201,22 +267,13 @@ class _Inference(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         raise NotImplementedError(
-            "a gradient through a tensor-parallel collective: training "
-            "across ranks (the data-parallel reduction and TP's "
-            "transposes) is not ported (ROADMAP.md Queue 1)")
+            "a gradient through the sequence-cut decode combine: it serves "
+            "decode steps only (a train step has no cache to cut)")
 
 
-def _inference(fn, x, *args):
+def serving_only(fn, x, *args) -> torch.Tensor:
+    """``fn(x, *args)`` (a collective of this module) for the sequence-cut
+    decode combine: a gradient that reaches it raises."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _Inference.apply(x, fn, args)
     return fn(x, *args)
-
-
-def tp_all_gather(x, mesh, axis: str, dim: int) -> torch.Tensor:
-    """``all_gather`` for the tensor-parallel forward (no gradient)."""
-    return _inference(all_gather, x, mesh, axis, dim)
-
-
-def tp_all_reduce(x, mesh, axis: str, op: str = "sum") -> torch.Tensor:
-    """``all_reduce`` for the tensor-parallel forward (no gradient)."""
-    return _inference(all_reduce, x, mesh, axis, op)

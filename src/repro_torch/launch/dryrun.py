@@ -22,8 +22,10 @@ Per case, records:
     tensor-parallel path issues its collectives through
     ``launch/collectives.py``, which count the result bytes by kind and
     move nothing there, as ``hlo.py`` reads them off the compiled
-    program), over NVLink's datasheet rate. Counted for the prefill and
-    decode steps of the attention decoders under the baseline rules;
+    program), over NVLink's datasheet rate. Counted for the prefill,
+    decode and train steps of the attention decoders under the baseline
+    rules (a train step's: its microbatches' TP collectives, forward,
+    remat's recompute and backward, and the data-parallel reduction);
     every other case writes null with its reason (``collective_reason``).
     Peak bytes have no counterpart of XLA's memory analysis: null.
 
@@ -70,18 +72,18 @@ PEAK_REASON = "no counterpart of XLA's memory analysis in the port"
 
 def collective_reason(cfg, kind: str, rules) -> str | None:
     """Why the collective term of a case is not counted, or None where it
-    is: the prefill and decode steps of an attention decoder under the
-    baseline rules, the one path whose collectives run across ranks on
-    the meta device (tensor parallelism, ``partitioning.TensorParallel``)."""
+    is: the prefill, decode and train steps of an attention decoder under
+    the baseline rules, the one path whose collectives run across ranks
+    on the meta device (tensor parallelism, ``partitioning.
+    TensorParallel``, and the train step's data-parallel reduction)."""
     todo = "is not ported (ROADMAP.md Queue 1)"
-    if kind == "train":
-        return ("training across ranks (the data-parallel gradient "
-                f"reduction and TP's transposes) {todo}")
     if rules.rules.get("embed") is not None:
-        return f"the fsdp rules' ZeRO-3 gathers of the dense leaves {todo}"
+        what = "training" if kind == "train" else "gathers of the dense leaves"
+        return f"the fsdp rules' ZeRO-3 {what} {todo}"
     if rules.rules.get("expert") is not None:
         return ("the expert-parallel rules' branch runs across live ranks "
-                "only (launch/ranks.py): not counted on the meta device")
+                "only (launch/ranks.py): its counting on the meta device "
+                f"{todo}")
     if rules.rules.get("kv_seq") is not None:
         return f"decode_kv='seq' under tensor parallelism {todo}"
     if cfg.encoder is not None:
@@ -306,8 +308,8 @@ def main():
         "analytic roofline terms at H100 SXM constants "
         f"({CARD}: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
         f"{HBM_BW / 1e12:.2f} TB/s), and the collective term of the "
-        f"dense decoders' prefill and decode steps under the baseline "
-        f"rules at NVLink's {NVLINK_BW / 1e9:.0f} GB/s.")
+        f"dense decoders' prefill, decode and train steps under the "
+        f"baseline rules at NVLink's {NVLINK_BW / 1e9:.0f} GB/s.")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")

@@ -17,7 +17,10 @@ How a rank holds a ``launch/specs.build_case`` case with a
   moments are cut by their specs where the branch runs
   (``moe.expert_parallel``): this rank's E / ep experts, and under the
   fsdp rules its d / z slice along ``embed`` (``moe.zero_gathered``);
-  every other tensor is whole on every rank.
+  every other tensor is whole on every rank;
+* a train batch (the role "micro") is cut as a batch once its rows are
+  in ``micro_order``: a rank holds its share of each of the reference's
+  microbatches.
 
 ``rank_block`` cuts whole arguments or outputs to a rank's block and
 ``gather_blocks`` puts the blocks back together (for tests: copies that
@@ -29,7 +32,8 @@ the CPU. The jobs: ``run_plan_rank`` draws only this rank's block of
 the parameters (``init_params``' cut, layer by layer), builds the case
 with the process mesh in its rules and runs its steps (a ``Plan``'s
 ``paged`` steps run the paged pool instead: a prefill, a suffix prefill
-over its cached prefix, decode steps); ``run_moe_rank`` runs one
+over its cached prefix, decode steps; its train steps take a batch
+whose rows a rank holds in ``micro_order``); ``run_moe_rank`` runs one
 ``moe_block`` with its gradient. ``run_plan`` is the same plan in one
 process: the reference the ranks are held to.
 """
@@ -51,7 +55,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import collectives, distributed
 from repro_torch.launch.mesh import CountingMesh, MeshDesc, ProcessMesh
-from repro_torch.launch.specs import build_case
+from repro_torch.launch.specs import build_case, train_plan
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import (ParamSpec, flatten, init_params,
@@ -69,7 +73,7 @@ from repro_torch.training.optimizer import AdamW
 ARG_ROLES = {"prefill": ("params", "batch", "batch", "batch", "batch",
                          "batch"),
              "decode": ("params", "batch", "batch"),
-             "train": ("params", "opt", "batch")}
+             "train": ("params", "opt", "micro")}
 OUT_ROLES = {"prefill": ("batch", "batch"), "decode": ("batch", "batch"),
              "train": ("params", "opt", "whole")}
 SEED = 0
@@ -161,6 +165,23 @@ def _walk(fn, spec, tree):
     return type(tree)(items)
 
 
+def micro_order(rules: ShardingRules, rows: int) -> Optional[torch.Tensor]:
+    """The order of a train batch's ``rows`` in which each rank's block is
+    contiguous, or None where it is the rows' own order. The reference's
+    microbatch i is rows [i B / n, (i + 1) B / n) of the whole batch
+    (``train_plan``'s n), which the data ranks split: a rank's block
+    holds, microbatch by microbatch, its share of the reference's rows,
+    and the step's reshape of its rows into n microbatches finds them
+    (rows that n x data does not divide stay in order: no step splits
+    them so)."""
+    n = train_plan(rules, InputShape("train", 0, rows, "train"))[0]
+    d = rules.size("batch")
+    if n == 1 or d == 1 or rows % (n * d):
+        return None
+    return torch.arange(rows).reshape(n, d, rows // (n * d)).transpose(
+        0, 1).reshape(-1)
+
+
 def _leaf_entries(cfg: ModelConfig, role: str, spec, tree, rules,
                   structure=None):
     """(entries or None) of each tensor of ``tree`` in ``flatten``'s
@@ -173,6 +194,8 @@ def _leaf_entries(cfg: ModelConfig, role: str, spec, tree, rules,
     if role == "opt":
         per = _leaf_entries(cfg, "params", None, None, rules, structure)
         return [None] + per + per
+    # "batch", and "micro": a train batch, cut as a batch once its rows
+    # are in ``micro_order``
     got = []
     _walk(lambda s, t: got.append(_batch_entries(s, rules)), spec, tree)
     return got
@@ -207,6 +230,10 @@ def rank_block(cfg: ModelConfig, roles: Sequence[str], specs, trees,
         if len(ents) != len(ts):
             raise ValueError(f"rank_block: a {role} tree of {len(ts)} "
                              f"tensors, {len(ents)} expected")
+        if role == "micro":
+            order = micro_order(rules, ts[0].shape[0])
+            if order is not None:
+                ts = [t[order.to(t.device)] for t in ts]
         out.append(_rebuild(tree, [
             t if e is None else
             t[block_index(t.shape, e, rules.axis_sizes, coords)].clone()
@@ -248,6 +275,10 @@ def gather_blocks(cfg: ModelConfig, roles: Sequence[str], specs,
                     continue
                 held[key] = ts[j]
                 t[idx] = ts[j]
+            if role == "micro":
+                order = micro_order(rules, t.shape[0])
+                if order is not None:
+                    t = torch.empty_like(t).index_copy_(0, order, t)
             new.append(t)
         out.append(_rebuild(tree, new))
     return tuple(out)
@@ -270,13 +301,15 @@ class Plan:
     """A case's steps on one configuration: a prefill of ``prefill``
     (batch, padded length, true lengths), then ``decode`` decode steps
     over the caches it filled (the first fed random tokens, each later
-    one the greedy tokens of the step before), and a train step of
-    ``train`` (batch, length). ``paged`` (page, prefix length, prompt
-    length) runs a paged pool instead of ``prefill``, batch 1: a prefill
-    of the prompt's first tokens, a suffix prefill of the rest over them
-    (``prefix_len`` / ``pos_base``), then the decode steps. Parameters
-    are drawn from seed ``SEED`` on the device, inputs from ``SEED`` + 1
-    on the CPU."""
+    one the greedy tokens of the step before), and ``train_steps`` train
+    steps of ``train`` (batch, length) or (batch, length, valid labels a
+    row: the rest -1), each on the new parameters and AdamW state of the
+    one before and a batch of its own. ``paged`` (page, prefix length,
+    prompt length) runs a paged pool instead of ``prefill``, batch 1: a
+    prefill of the prompt's first tokens, a suffix prefill of the rest
+    over them (``prefix_len`` / ``pos_base``), then the decode steps.
+    Parameters are drawn from seed ``SEED`` on the device, inputs from
+    ``SEED`` + 1 on the CPU."""
     arch: str
     reduced: bool = True
     layers: Optional[int] = None
@@ -292,15 +325,18 @@ class Plan:
     prefill: Optional[Tuple[int, int, Tuple[int, ...]]] = None
     paged: Optional[Tuple[int, int, int]] = None
     decode: int = 0
-    train: Optional[Tuple[int, int]] = None
+    train: Optional[Tuple] = None
+    train_steps: int = 1
     # hand back the caches, new parameters and AdamW state as ``digest``s
     # (the logits and metrics whole): what a full-size run can return
     digest: bool = False
-    # run each step once first on copies of what it writes, so that the
-    # counted, timed run is warm
+    # run the first step of each kind once first on copies of what it
+    # writes, so that the counted, timed run is warm (a later step of the
+    # kind is warm from the one before)
     warm: bool = False
     # on the card, run the first decode step once more on copies of the
-    # caches under torch.profiler (``trace_step``), after the counted run
+    # caches, and the first train step once more, under torch.profiler
+    # (``trace_step``), after the counted run
     trace: bool = False
 
 
@@ -385,18 +421,19 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
     kv = getattr(torch, plan.kv_dtype) if plan.kv_dtype else None
     gen = torch.Generator().manual_seed(SEED + 1)
     tp = None if coords is None else tensor_parallel(rules)
-    res: Dict[str, Any] = {"more": [], "greedy": [], "inputs": {}}
+    res: Dict[str, Any] = {"more": [], "train_more": [], "greedy": [],
+                           "inputs": {}}
 
-    def cut(specs, args):
+    def cut(specs, args, role="batch"):
         """On a rank, the whole batch tensors ``args`` cut to its block."""
         if coords is None:
             return list(args)
-        return list(rank_block(cfg, ("batch",) * len(args), specs, args,
+        return list(rank_block(cfg, (role,) * len(args), specs, args,
                                rules, coords))
 
     def step(kind, fn, args, at=None):
         """Run one step; ``args[at]``: the caches it writes."""
-        if plan.warm:
+        if plan.warm and kind not in res:
             fn(*(clone_caches(a) if i == at else a
                  for i, a in enumerate(args)))
         if device.type == "cuda":
@@ -415,11 +452,12 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
         rec = dict(out=kept, s=secs, launches=ops.launch_counts(),
                    collectives=collectives.collective_bytes(),
                    calls=collectives.collective_calls())
-        if kind == "decode" and "decode" in res:
-            res["more"].append(rec)
+        if kind in res:
+            res["more" if kind == "decode" else f"{kind}_more"].append(rec)
         else:
             res[kind] = rec
-            if plan.trace and kind == "decode" and device.type == "cuda":
+            if plan.trace and kind in ("decode", "train") and \
+                    device.type == "cuda":
                 rec["trace"] = trace_step(fn, [
                     clone_caches(a) if i == at else a
                     for i, a in enumerate(args)], device)
@@ -506,14 +544,22 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
             (params, to(rest), caches, n), at=2)
         decode(1, max_len, caches, paged_decode)
     if plan.train is not None:
-        b, s = plan.train
+        b, s = plan.train[:2]
         case = build_case(cfg, InputShape("train", s, b, "train"), rules)
-        batch = {k: to(_ints(gen, cfg.vocab, t.shape)
-                       if t.dtype == torch.int32 else
-                       _normal(gen, t.shape, dt))
-                 for k, t in case.args[2].items()}
-        batch = cut((case.in_specs[2],), (batch,))[0]
-        step("train", case.fn, (params, AdamW().init(params), batch))
+        state = AdamW().init(params)
+        res["inputs"]["train"] = []
+        for _ in range(plan.train_steps):
+            batch = {k: _ints(gen, cfg.vocab, t.shape)
+                     if t.dtype == torch.int32 else _normal(gen, t.shape, dt)
+                     for k, t in case.args[2].items()}
+            if len(plan.train) > 2:
+                keep = torch.arange(batch["labels"].shape[1])[None] < \
+                    torch.tensor(plan.train[2])[:, None]
+                batch["labels"] = torch.where(keep, batch["labels"], -1)
+            res["inputs"]["train"].append(batch)
+            batch = cut((case.in_specs[2],), (
+                {k: to(t) for k, t in batch.items()},), "micro")[0]
+            params, state, _ = step("train", case.fn, (params, state, batch))
     res["greedy"] = (torch.stack(res["greedy"], dim=1) if res["greedy"]
                      else None)
     return res
@@ -605,8 +651,10 @@ def run_moe_rank(mesh: ProcessMesh, device, cfg: ModelConfig, p, x,
     """One ``moe_block`` on this rank: ``p`` (one layer's whole MoE
     parameters) and ``x`` (B, S, d) whole, cut here to this rank's block
     and rows; the gradient of this rank's loss, sum(y ** 2) + aux, with
-    respect to x and every parameter it holds. The global loss is the
-    sum of the data ranks' losses."""
+    respect to x and every parameter it holds. Over data ranks the aux is
+    the whole batch's (its means global), so that the ranks' gradients,
+    summed over the data ranks, are those of sum(y ** 2) + aux on the
+    whole batch."""
     rules = tp_rules(expert_parallel=True, fsdp=fsdp,
                      axis_sizes=mesh.axis_sizes, mesh=mesh)
     coords = {a: mesh.coordinate(a) for a in mesh.axis_names}

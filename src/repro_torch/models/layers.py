@@ -10,7 +10,11 @@ Under tensor parallelism across ranks (``partitioning.tensor_parallel``)
 ``attention_block`` and ``mlp_block`` run on a rank's blocks of their
 weights and caches: q/k/v columns gathered where the heads are not cut,
 attention over this rank's q heads and the kv heads they read (whatever
-group those form), ``wo`` summed over the ranks. A dense cache whose kv
+group those form), ``wo`` summed over the ranks. Their normed input
+enters the products with cut weights through ``TensorParallel.enter``
+(the all-reduce of its gradient), and each gather carries the transpose
+its consumer asks for (``launch/collectives.py``), so a train step's
+gradients are the reference's on every rank. A dense cache whose kv
 heads the axis does not divide is cut over its sequence: a decode step
 then attends every head over this rank's slots and combines the ranks'
 results by their log-sum-exps (flash-decode, as the reference's GSPMD
@@ -186,12 +190,18 @@ def attention_block(p, x, positions, cfg: ModelConfig, *, window=None,
     """
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     tp = tensor_parallel()
+    if tp is not None:
+        hc = tp.enter(h)
+        # the gathered K/V feed this rank's own q heads where those are cut
+        own = tp.cut("act_heads", cfg.n_heads)
 
     def heads(w, n, w_logical, act_logical):
         """(h @ p[w] split into heads, its first head: 0 where whole)."""
         if tp is None:
             return _split_heads(h @ p[w], n, cfg.head_dim), 0
-        return tp.heads(h @ p[w], n, cfg.head_dim, w_logical, act_logical)
+        src = hc if tp.cut(w_logical, n * cfg.head_dim) else h
+        return tp.heads(src @ p[w], n, cfg.head_dim, w_logical, act_logical,
+                        own)
 
     # q/k/v are constrained on their HEAD axes (shard() leaves a head
     # count that the model axis does not divide whole)
@@ -396,19 +406,21 @@ def _decode_seq_cut(tp, cfg: ModelConfig, q, q0: int, cache, positions,
     heads' output (b, 1, nq_loc, hd)."""
     ck, cv, cpos = cache
     nq = q.shape[2]
-    q_all = q if nq == cfg.n_heads else collectives.tp_all_gather(
-        q, tp.mesh, tp.axis, dim=2)
+    q_all = q if nq == cfg.n_heads else collectives.serving_only(
+        collectives.all_gather, q, tp.mesh, tp.axis, 2)
     out, lse = K.attention_with_lse(q_all, ck.to(q.dtype), cv.to(q.dtype),
                                     positions.contiguous(), cpos,
                                     window=window)
     lse = lse[..., 0]                          # (b, nq); +inf: no valid key
     lse = lse.masked_fill(torch.isinf(lse), float("-inf"))
-    top = collectives.tp_all_reduce(lse, tp.mesh, tp.axis, op="max")
+    top = collectives.serving_only(collectives.all_reduce, lse, tp.mesh,
+                                   tp.axis, "max")
     w = torch.exp(lse - top.masked_fill(torch.isinf(top), 0.0))
     part = torch.where(w[..., None] > 0, out[:, 0].float() * w[..., None],
                        0.0)
-    part = collectives.tp_all_reduce(
-        torch.cat([part, w[..., None]], dim=-1), tp.mesh, tp.axis)
+    part = collectives.serving_only(
+        collectives.all_reduce, torch.cat([part, w[..., None]], dim=-1),
+        tp.mesh, tp.axis)
     den = part[..., -1:]
     o = torch.where(den > 0, part[..., :-1] / den.clamp(min=1e-30), 0.0)
     return o[:, None, q0:q0 + nq].to(q.dtype)
@@ -416,10 +428,12 @@ def _decode_seq_cut(tp, cfg: ModelConfig, q, q0: int, cache, positions,
 
 def mlp_block(p, x, cfg: ModelConfig):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    tp = tensor_parallel()
+    if tp is not None and tp.cut("ff", cfg.d_ff):
+        h = tp.enter(h)
     up = shard(h @ p["wi"], "batch", None, "act_ff")
     gate = shard(h @ p["wg"], "batch", None, "act_ff")
     act = F.silu(gate) * up
-    tp = tensor_parallel()
     out = act @ p["wo"] if tp is None else tp.contract(act, p["wo"], "ff",
                                                        cfg.d_ff)
     return x + shard(out, "batch", None, "act_embed")

@@ -12,19 +12,39 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import collectives
 from repro_torch.models import transformer as T
-from repro_torch.models.partitioning import shard
+from repro_torch.models.partitioning import (data_ranks, shard,
+                                             tensor_parallel)
 
 
 def _ce_loss(params, cfg: ModelConfig, h_text, targets):
     """Token-mean cross entropy; returns (sum_nll, n_valid), f32. Targets
     below 0 are padding: their nll is taken at index 0 and weighted 0
-    (JAX's take_along_axis wraps -1 to the last index; either is 0)."""
+    (JAX's take_along_axis wraps -1 to the last index; either is 0).
+    Where tensor parallelism cuts the logits over the vocabulary, the
+    vocab-parallel form: the largest logit, the sum of exponentials and
+    the target's logit each summed (the largest: maximised) over the
+    ranks."""
     logits = T.lm_logits(params, cfg, h_text).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    idx = torch.clamp(targets.long(), min=0)[..., None]
-    nll = -torch.gather(logp, -1, idx)[..., 0]
+    idx = torch.clamp(targets.long(), min=0)
     mask = (targets >= 0).float()
+    tp = tensor_parallel()
+    if tp is None or not tp.cut("vocab", cfg.vocab):
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+        return torch.sum(nll * mask), torch.sum(mask)
+    start, n = tp.block(cfg.vocab)
+    top = collectives.all_reduce(logits.detach().amax(-1), tp.mesh, tp.axis,
+                                 op="max")
+    local = idx - start
+    mine = (local >= 0) & (local < n)
+    target = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+    target = torch.where(mine, target[..., 0], 0.0)
+    sums = collectives.tp_all_reduce(torch.stack(
+        [torch.exp(logits - top[..., None]).sum(-1), target], -1),
+        tp.mesh, tp.axis)
+    nll = torch.log(sums[..., 0]) + top - sums[..., 1]
     return torch.sum(nll * mask), torch.sum(mask)
 
 
@@ -35,6 +55,11 @@ def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mm_embeds (B,n_mm,feat) and enc_frames (B,T,feat). Returns (total,
     {"loss", "aux"}) with total = loss + 0.01 aux (the MoE layers'
     load-balance loss).
+
+    Over data ranks (``partitioning.data_ranks``) ``batch`` is this
+    rank's rows: ``total`` is its share of the global loss (its summed
+    nll over the global count of valid targets, and the global aux), and
+    the metrics are the global ones, equal on every rank.
 
     loss_chunk > 0: the lm-head product and cross entropy run over
     sequence chunks of that length (the last padded with targets -1, as
@@ -69,10 +94,19 @@ def train_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             n_valid = n_valid + dn
     else:
         sum_nll, n_valid = _ce_loss(params, cfg, h_pred, targets)
-    loss = sum_nll / torch.clamp(n_valid, min=1.0)
+    ranks = data_ranks()
+    if ranks is None:
+        loss = mean = sum_nll / torch.clamp(n_valid, min=1.0)
+    else:
+        # this rank's share of the global loss: its sum over the global
+        # count; the metric, the global mean
+        sums = collectives.all_reduce(torch.stack([sum_nll.detach(),
+                                                   n_valid]), *ranks)
+        count = torch.clamp(sums[1], min=1.0)
+        loss, mean = sum_nll / count, sums[0] / count
     aux_w = 0.01
     total = loss + aux_w * aux
-    return total, {"loss": loss, "aux": aux}
+    return total, {"loss": mean, "aux": aux}
 
 
 def prefill_forward(params, cfg: ModelConfig, tokens, caches,

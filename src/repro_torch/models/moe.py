@@ -28,7 +28,9 @@ The reference's three sharding modes (see partitioning.tp_rules):
   rank of one expert line) and only its E / ep experts of ``wi``, ``wg``
   and ``wo`` (under the fsdp rules also only its d / z slice along
   ``embed``), and computes only those experts; its collectives go
-  through ``launch/collectives.py``.
+  through ``launch/collectives.py``. Over data ranks, where a gradient
+  flows, the aux loss's means are global (all-reduced over the batch
+  axes), as the reference's are under GSPMD.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import moe_spec
-from repro_torch.models.partitioning import current_rules, refuse_cut, shard
+from repro_torch.models.partitioning import (current_rules, data_ranks,
+                                             refuse_cut, shard)
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -96,12 +99,24 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     probs, gates, eidx = route(p, h, cfg)
 
     # ---- aux load-balance loss (Switch-style) ----
-    me = probs.mean(dim=(0, 1))                                # (E,)
     top1 = torch.zeros((E,), dtype=torch.float32, device=x.device)
     top1.scatter_add_(0, eidx[..., 0].reshape(-1),
                       torch.ones((B * S,), dtype=torch.float32,
                                  device=x.device))
-    aux = E * torch.sum(me * (top1 / (B * S)))
+    ranks = data_ranks() if probs.requires_grad else None
+    if ranks is None:
+        me = probs.mean(dim=(0, 1))                            # (E,)
+        aux = E * torch.sum(me * (top1 / (B * S)))
+    else:
+        # over data ranks the means are global, as the reference's are
+        # under GSPMD: the ranks' sums summed (the gradient of each rank's
+        # probabilities passes through), over the global row count. A
+        # step with no gradient drops the aux (the reference's compiled
+        # serving steps drop it too): it stays this rank's, uncounted
+        rows = B * S * current_rules().size("batch")
+        sums = collectives.tp_all_reduce(
+            torch.cat([probs.sum(dim=(0, 1)), top1]), *ranks) / rows
+        aux = E * torch.sum(sums[:E] * sums[E:])
 
     # ---- sort-based position-in-expert ----
     sort_idx, sorted_e, pos, starts, counts = dispatch(eidx, E)

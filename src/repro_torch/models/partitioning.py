@@ -21,8 +21,12 @@ what a rank computes, at the shard points of the dense path, by
 baseline rules with a rank mesh in ``rules.mesh``): a rank holds each
 leaf cut as its placement says, and the blocks call its helpers to
 gather columns that the activation wants whole, to all-reduce a
-contraction over cut rows, and to look up embedding rows cut over
-'vocab' (``launch/collectives.py`` issues and counts the collectives).
+contraction over cut rows, to look up embedding rows cut over 'vocab',
+and to let a replicated input into products with cut weights
+(``enter``); each carries its transpose, so that a train step's
+gradients are right on every rank (``launch/collectives.py`` issues and
+counts the collectives). ``data_ranks`` names the ranks over which the
+batch is split: a train step's loss and gradients are summed over them.
 """
 from __future__ import annotations
 
@@ -297,39 +301,50 @@ class TensorParallel:
         n = dim // self.ways
         return self.coord * n, n
 
+    def enter(self, h):
+        """``h`` (replicated along the axis) as the input of products with
+        this rank's cut weights (Megatron's "f"): itself in the forward;
+        in the backward the ranks' partial gradients of it are summed."""
+        return collectives.tp_enter(h, self.mesh, self.axis)
+
     def heads(self, y, n_heads: int, head_dim: int, w_logical: str,
-              act_logical: str):
+              act_logical: str, own: bool = False):
         """``y = x @ w``, w's columns (``w_logical``, n_heads x head_dim
         whole) this rank's block where they are cut. Returns (y split into
         heads, its first head): this rank's heads where the activation's
         heads (``act_logical``) are cut, else every head, gathered over
         the axis where only the weight's columns are (a head count the
-        axis does not divide, or a block that splits a head)."""
+        axis does not divide, or a block that splits a head). ``own``:
+        the gathered heads feed this rank's own q heads (its gradient the
+        reduce-scatter of the ranks'), else every rank alike (its
+        gradient this rank's slice)."""
         act_cut = self.cut(act_logical, n_heads)
         if self.cut(w_logical, n_heads * head_dim) and not act_cut:
-            y = collectives.tp_all_gather(y, self.mesh, self.axis, dim=-1)
+            gather = (collectives.gather_zero if own else
+                      collectives.gather_replicated)
+            y = gather(y, self.mesh, self.axis, dim=-1)
         first = self.block(n_heads)[0] if act_cut else 0
         return y.reshape(y.shape[:-1] + (-1, head_dim)), first
 
     def contract(self, x, w, w_logical: str, rows: int):
         """``x @ w`` summed over the ranks where w's ``rows`` (named
         ``w_logical``) are cut: a whole ``x`` gives its columns of this
-        rank's block first. With w whole it is the plain product. The
-        partial products are summed in x's dtype, as the reference's
-        program sums them (bf16 partials: one rounding each, then the
-        sum's)."""
+        rank's block first (``take_slice``: its gradient gathered). With
+        w whole it is the plain product. The partial products are summed
+        in x's dtype, as the reference's program sums them (bf16
+        partials: one rounding each, then the sum's); the sum's gradient
+        passes through."""
         if not self.cut(w_logical, rows):
             return x @ w
         if x.shape[-1] == rows:
-            start, n = self.block(rows)
-            x = x[..., start:start + n]
+            x = collectives.take_slice(x, self.mesh, self.axis, dim=-1)
         return collectives.tp_all_reduce(x @ w, self.mesh, self.axis)
 
     def embed(self, table, tokens, vocab: int):
         """Rows ``tokens`` of the embedding ``table`` (vocab whole rows):
         where its rows are cut over 'vocab', each rank looks up the tokens
         of its block (0 elsewhere) and the sum over the ranks is the
-        lookup."""
+        lookup (its gradient passes through to each rank's rows)."""
         if not self.cut("vocab", vocab):
             return table[tokens]
         start, n = self.block(vocab)
@@ -365,6 +380,18 @@ def tensor_parallel(rules: Optional[ShardingRules] = None
             "decode_kv='heads'; decode_kv='seq' (the paged pool cut over "
             "its pages) is not ported")
     return TensorParallel(rules, mesh, axis, ways, mesh.coordinate(axis))
+
+
+def data_ranks(rules: Optional[ShardingRules] = None):
+    """(rank mesh, the batch's mesh axes) where a rank mesh in ``rules``
+    (the current ones by default) splits the batch over more than one
+    rank, else None: the ranks whose losses make up one global loss."""
+    rules = current_rules() if rules is None else rules
+    mesh = getattr(rules, "mesh", None)
+    if mesh is None or not hasattr(mesh, "coordinate") or \
+            rules.size("batch") == 1:
+        return None
+    return mesh, rules.rules["batch"]
 
 
 def refuse_cut(what: str, specs, slice_note: str) -> None:

@@ -253,7 +253,13 @@ def scatter_mm_features(x, positions, mm_feats, mm_start):
 
 
 def lm_logits(params, cfg: ModelConfig, h):
+    """The logits of ``h``; under tensor parallelism this rank's block of
+    the vocabulary where 'vocab' cuts the head, ``h`` entering its
+    product through ``TensorParallel.enter``."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    tp = tensor_parallel()
+    if tp is not None and tp.cut("vocab", cfg.vocab):
+        h = tp.enter(h)
     return shard(h @ w.to(h.dtype), "batch", None, "act_vocab")
 
 

@@ -7,9 +7,17 @@ per-micro gradients divided by n, the mean of the losses). The step is
 functional, as the reference's: it returns new params and optimizer
 state and modifies neither input. On the card attention runs the
 hand-written flash kernel and its gradient kernel.
+
+Across ranks the reference's GSPMD program is spelled out: each rank
+differentiates its share of the global loss (``models/model.py``), the
+tensor-parallel collectives carry their transposes
+(``launch/collectives.py``), the gradients are summed over the data
+ranks once a step (``_sum_over_data``) and the clip's norm over the
+ranks that cut a leaf (``_sq_norm``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,8 +26,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
 from repro_torch.models import partitioning
 from repro_torch.models.model import train_forward
-from repro_torch.models.params import flatten, leaves, map_tree, \
-    param_structure
+from repro_torch.models.params import (attn_spec, flatten, leaves,
+                                       map_tree, moe_spec, param_structure,
+                                       ssm_spec, unflatten)
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 
@@ -35,7 +44,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
     micro-gradient and the accumulator are constrained to it leaf by
     leaf through ``partitioning._constrain``, as the reference pins its
     accumulator to the ZeRO shards. In one process that is a no-op.
+
+    Across ranks (a rank mesh in the current rules: ``_process_mesh``)
+    ``params`` and ``opt_state`` are this rank's blocks and ``batch`` its
+    rows, microbatch by microbatch (``launch/ranks.py`` cuts them); the
+    step returns this rank's blocks of the reference's step on the whole
+    batch.
     """
+    whole = [tuple(s.shape) for s in flatten(param_structure(cfg))]
+
     def _constrain(tree):
         if grad_specs is None:
             return tree
@@ -60,8 +77,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
         mesh = _process_mesh(cfg)
+        ranks = partitioning.data_ranks()
         if num_microbatches <= 1:
             metrics, grads = value_and_grad(params, batch)
+            grads = _sum_over_data(grads, ranks)
         else:
             n = num_microbatches
             dev = leaves(params)[0].device
@@ -79,60 +98,86 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, remat: bool = True,
                     map_tree(lambda a: a + next(it).float(), g_sum))
                 l_sum = l_sum + m["loss"]
                 a_sum = a_sum + m["aux"]
-            grads = map_tree(lambda g: g / n, g_sum)
+            grads = map_tree(lambda g: g / n, _sum_over_data(g_sum, ranks))
             metrics = {"loss": l_sum / n, "aux": a_sum / n}
         if mesh is None:
             new_params, new_state = opt.update(grads, opt_state, params)
         else:
             new_params, new_state = opt.update(
-                grads, opt_state, params, sq_norm=_sq_norm(cfg, grads, mesh))
+                grads, opt_state, params, sq_norm=_sq_norm(whole, grads, mesh))
         return new_params, new_state, dict(metrics)
 
     return train_step
 
 
 def _process_mesh(cfg: ModelConfig):
-    """The live process mesh of the current rules, or None in one process.
+    """The live process mesh of the current rules (a ``CountingMesh`` on
+    the meta device), or None in one process.
 
-    Across ranks the step runs at 1 x ep only: every rank holds the same
-    rows and computes the same loss, and the expert-parallel branch's
-    exchanges leave each rank the whole gradient of every leaf it holds
-    (``launch/collectives.py``). Over data ranks the gradients of the
-    leaves they share would have to be summed, which nothing does yet;
-    under tensor parallelism (a dense leaf cut over 'model') the
-    collectives' transposes are missing too: both raise."""
-    partitioning.refuse_cut(
-        "train_step", lambda: {f"leaf {i}": s for i, s in enumerate(
-            flatten(param_structure(cfg)))},
-        "training across ranks (the data-parallel gradient reduction and "
-        "TP's transposes)")
+    Across ranks the step runs under the baseline rules (tensor
+    parallelism over 'model', data parallelism over the batch axes) for
+    the dense decoders, and under the expert-parallel rules; it raises
+    where a part is not ported: fsdp's ZeRO-3 training across data ranks,
+    and MoE-TP, the SSM block and the encoder-decoder under tensor
+    parallelism."""
     rules = partitioning.current_rules()
     mesh = getattr(rules, "mesh", None)
-    if mesh is None or not hasattr(mesh, "group"):
+    if mesh is None or not hasattr(mesh, "coordinate"):
         return None
-    if rules.size("batch") > 1:
+    if rules.rules.get("embed") is not None and rules.size("batch") > 1:
         raise NotImplementedError(
-            f"train_step: the batch split {rules.size('batch')} ways over "
-            f"{rules.rules.get('batch')}: the data-parallel gradient "
-            f"reduction across ranks is not ported (ROADMAP.md Queue 1); "
-            f"run the step on a mesh of 1 x ep")
+            f"train_step: the fsdp rules split the batch "
+            f"{rules.size('batch')} ways over {rules.rules.get('batch')}: "
+            f"fsdp's ZeRO-3 training across data ranks is not ported "
+            f"(ROADMAP.md Queue 1)")
+    for what, present, specs in (
+            ("MoE-TP (each expert's 'ff' over 'model')",
+             any(s.ffn == "moe" for s in cfg.pattern), moe_spec),
+            ("the SSM block", any(s.mixer == "ssm" for s in cfg.pattern),
+             ssm_spec),
+            ("the encoder-decoder (whisper)", cfg.encoder is not None,
+             lambda c: attn_spec(c, cross=True))):
+        if present:
+            partitioning.refuse_cut(
+                "train_step", functools.partial(specs, cfg),
+                f"training {what} under tensor parallelism")
     return mesh
 
 
-def _sq_norm(cfg: ModelConfig, grads, mesh) -> torch.Tensor:
-    """The squared global norm of gradients of which the expert leaves
-    are this rank's blocks (shapes below the whole tree's): their sum is
-    all-reduced over the expert axis, the whole leaves counted once."""
+def _sum_over_data(grads, ranks):
+    """The gradients summed over the data ranks (``partitioning.
+    data_ranks``; every leaf is replicated over them): one all-reduce of
+    a flat buffer a dtype, in the gradients' dtype."""
+    if ranks is None:
+        return grads
+    flat = flatten(grads)
+    out = list(flat)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, g in enumerate(flat):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        buf = collectives.all_reduce(
+            torch.cat([flat[i].reshape(-1) for i in idx]), *ranks)
+        for i, part in zip(idx, buf.split([flat[i].numel() for i in idx])):
+            out[i] = part.view(flat[i].shape)
+    return unflatten(grads, out)
+
+
+def _sq_norm(whole, grads, mesh) -> torch.Tensor:
+    """The squared global norm of gradients of which some leaves are this
+    rank's blocks (shapes below the whole tree's ``whole``, cut over
+    'model' by tensor parallelism or by the expert axis): their sum is
+    all-reduced over that axis, the whole leaves counted once."""
     rules = partitioning.current_rules()
-    whole = [tuple(s.shape) for s in flatten(param_structure(cfg))]
+    tp = partitioning.tensor_parallel(rules)
+    axis = tp.axis if tp is not None else rules.rules["expert"]
     own, shared = [], []
     for shape, g in zip(whole, flatten(grads)):
         (shared if tuple(g.shape) == shape else own).append(
             torch.sum(torch.square(g.float())))
     total = sum(shared)
     if own:
-        total = total + collectives.all_reduce(sum(own), mesh,
-                                               rules.rules["expert"])
+        total = total + collectives.all_reduce(sum(own), mesh, axis)
     return total
 
 

@@ -8,9 +8,11 @@ hung rank fails its test).
   and kept selections against the port's one-process block on that
   rank's rows, and the gradients with respect to x, each rank's expert
   shard and the whole leaves against the one-process gradient's block,
-  the global loss being the sum of the data ranks' losses (a leaf that
-  data ranks share is summed over them here, the data-parallel
-  reduction the port does not have yet).
+  each rank's loss being sum(y ** 2) over its rows plus the global aux
+  (its means over every data rank's rows, as the reference's are under
+  GSPMD), so that the global loss is sum(y ** 2) + aux on the whole
+  batch (a leaf that data ranks share is summed over them here, as the
+  train step's data-parallel reduction sums it).
 * The same block against the reference's own ``shard_map`` branch on 4
   forced host devices (a subprocess: ``XLA_FLAGS``, an ``Auto`` mesh),
   forward and ``jax.grad`` at (1, 4) and (2, 2); and the reference's
@@ -20,7 +22,7 @@ hung rank fails its test).
   and jamba-v0.1-52b at 1 x 2 and 2 x 2 (prefill, then decode over the
   caches it filled) and mixtral's train step at 1 x 2 (loss, new
   parameters and AdamW state gathered from the ranks), against the same
-  plan in one process.
+  plan in one process (over data ranks: ``tests/test_torch_train_parallel.py``).
 * The collective counter against its closed form, nothing counted
   without a mesh; a rank's block and its inverse; ``init_params``' cut.
 """
@@ -120,16 +122,17 @@ for shape, fsdp in [((1, 4), False), ((2, 2), True)]:
             return JMOE.moe_block(p, x, cfg)[0]
 
     def auxes(p, x):
-        # each data rank's aux on its own rows (the port's convention)
-        return jnp.stack([JMOE.moe_block(p, x[b], cfg)[1] for b in blocks])
+        # the aux of the whole batch: its means over every data rank's rows
+        with JPT.use_rules(rules):
+            return JMOE.moe_block(p, x, cfg)[1]
 
     def loss(p, x):
-        return jnp.sum(ep(p, x) ** 2) + jnp.sum(auxes(p, x))
+        return jnp.sum(ep(p, x) ** 2) + auxes(p, x)
 
     with jax.set_mesh(mesh):
         out[tag + "_y"] = np.asarray(jax.jit(ep)(p, x))
         gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, x)
-    out[tag + "_aux"] = np.asarray(jax.jit(auxes)(p, x))
+        out[tag + "_aux"] = np.asarray(jax.jit(auxes)(p, x))
     out[tag + "_gx"] = np.asarray(gx)
     for k, v in gp.items():
         out[tag + "_g_" + k] = np.asarray(v)
@@ -216,18 +219,16 @@ def _rules(mesh, fsdp):
 
 
 def _single(cfg, p, x, n_data):
-    """The one-process block on each data rank's rows: outputs per block
-    and the gradient of the sum of the blocks' losses."""
+    """The one-process block on the whole batch: its outputs on each data
+    rank's rows (the aux of the whole batch on each), and the gradient of
+    its loss, sum(y ** 2) + aux."""
     leaf = {k: t.clone().requires_grad_(True) for k, t in p.items()}
     xx = x.clone().requires_grad_(True)
-    rows = torch.arange(x.shape[0]).chunk(n_data)
-    per, total = [], 0
-    for b in rows:
-        y, aux, keep, loss = R.moe_loss(leaf, xx[b], cfg)
-        per.append((y.detach(), aux.detach(), keep))
-        total = total + loss
+    y, aux, keep, loss = R.moe_loss(leaf, xx, cfg)
+    per = [(yb, aux.detach(), kb) for yb, kb in zip(
+        y.detach().chunk(n_data), keep.chunk(n_data))]
     names = sorted(leaf)
-    g = torch.autograd.grad(total, [xx] + [leaf[k] for k in names])
+    g = torch.autograd.grad(loss, [xx] + [leaf[k] for k in names])
     return per, g[0], dict(zip(names, g[1:]))
 
 
@@ -316,8 +317,10 @@ def test_moe_gradients_across_ranks(runs, reference_params, mesh, fsdp,
 def test_collective_bytes_closed_form(runs, mesh, fsdp):
     """Per rank, in f32: the forward all-gathers the outputs (B / data, E,
     C, d) over the expert axis and, under fsdp with data > 1, wi, wg, wo
-    over data; the backward all-gathers the buffers' gradient and
-    reduce-scatters the three weight gradients."""
+    over data, and with data > 1 all-reduces the aux loss's sums (the
+    router's probabilities and the top-1 counts, 2 E) over data; the
+    backward all-gathers the buffers' gradient and reduce-scatters the
+    three weight gradients."""
     for capacity in CAPACITY:
         cfg = _moe_cfg(capacity)
         n_data = mesh[0]
@@ -331,6 +334,8 @@ def test_collective_bytes_closed_form(runs, mesh, fsdp):
         want = {"all-gather": 2 * out + weights}
         if weights:
             want["reduce-scatter"] = weights // n_data
+        if n_data > 1:
+            want_fwd["all-reduce"] = want["all-reduce"] = 2 * E * 4
         for res in runs[mesh]["moe"][(fsdp, capacity)]:
             assert res["forward"] == want_fwd
             assert res["total"] == want
@@ -366,7 +371,7 @@ def test_branch_equals_reference_shard_map(runs, mesh, fsdp):
     for r, res in enumerate(results):
         i = R.coordinates(desc, r)["data"]
         _close(res["y"], y_rows[i])
-        _close(res["aux"], ref[tag + "_aux"][i])
+        _close(res["aux"], ref[tag + "_aux"])
         _rel(res["grad_x"], gx_rows[i], 1e-4)
     got = _global_grads(cfg, desc, rules, results)
     for k in got:
@@ -456,20 +461,25 @@ def test_train_step_across_ranks(runs):
 
 
 def test_train_step_refuses_data_ranks():
-    """Over data ranks the shared leaves' gradients would need summing,
-    which the port does not do yet: the step raises before any work."""
+    """Over data ranks the step runs under the expert-parallel rules
+    (``tests/test_torch_train_parallel.py``); under the fsdp rules, whose
+    ZeRO-3 training across data ranks is not ported, it raises before
+    any work."""
     class Mesh:                     # a live mesh, as far as the step asks
         axis_sizes = {"data": 2, "model": 2}
+
+        def coordinate(self, axis):
+            return 0
 
         def group(self, axis):
             raise AssertionError("no collective may be called")
 
     cfg = get_config("mixtral-8x7b").reduced()
     step = make_train_step(cfg, AdamW())
-    rules = PT.tp_rules(expert_parallel=True, mesh=Mesh(),
+    rules = PT.tp_rules(expert_parallel=True, fsdp=True, mesh=Mesh(),
                         axis_sizes=Mesh.axis_sizes)
     with PT.use_rules(rules), pytest.raises(NotImplementedError,
-                                            match="data-parallel"):
+                                            match="fsdp's ZeRO-3 training"):
         step(None, None, None)
 
 
@@ -483,7 +493,8 @@ def test_rank_blocks_and_their_inverse(mesh, fsdp):
     """``init_params``' cut draws the whole tree's block; the blocks of a
     train case's arguments put back together are the whole; only the
     expert leaves (and their moments) are cut, by E / ep (and d / data
-    under fsdp), and the batch by its rows."""
+    under fsdp), and the batch by its rows: over data ranks, a rank's
+    share of each of the reference's microbatches (``ranks.micro_order``)."""
     cfg = get_config("mixtral-8x7b").reduced()
     desc, rules = _rules(mesh, fsdp)
     case = build_case(cfg, InputShape("train", 8, 4, "train"), rules)
@@ -511,9 +522,11 @@ def test_rank_blocks_and_their_inverse(mesh, fsdp):
             assert tuple(a.shape) == tuple(
                 n // cut.get(ax, 1) for n, ax in zip(w.shape, spec.axes))
         rows = 4 // mesh[0]
+        order = R.micro_order(rules, 4)
         for k, t in mine[2].items():
-            assert torch.equal(t, batch[k][c["data"] * rows:
-                                           (c["data"] + 1) * rows])
+            whole_rows = batch[k] if order is None else batch[k][order]
+            assert torch.equal(t, whole_rows[c["data"] * rows:
+                                             (c["data"] + 1) * rows])
     back = R.gather_blocks(cfg, R.ARG_ROLES["train"], case.in_specs, blocks,
                            args, rules, desc)
     for a, b in zip(flatten(back), flatten(args)):

@@ -34,10 +34,13 @@ whose 'model' axis is 2 or 4; f32, reduced configs.
   carries bf16 collectives in f32, so both sides are counted in f32
   here).
 * Refusals: ``moe_block``, ``ssm_block``, whisper's encoder and
-  cross-attention, the train step and a gradient through a TP
-  collective raise ``NotImplementedError`` under a rank mesh that would
-  cut their leaves.
+  cross-attention, and the train step of those blocks, raise
+  ``NotImplementedError`` under a rank mesh that would cut their leaves;
+  a gradient through the sequence-cut decode combine raises, while the
+  other TP collectives carry their transposes (the train step across
+  ranks: ``tests/test_torch_train_parallel.py``).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -496,7 +499,10 @@ def test_dry_run_counts_the_dense_decoders_only():
     """The dry-run writes the collective term of a dense decoder's
     base-rules decode (glm4-9b: 2 kv heads over a 16-way axis, so q, k and
     v gathered and the step combined across ranks), and null with its
-    reason under the fsdp rules, for a MoE config and for training."""
+    reason under the fsdp rules and for a MoE config; the train cases of
+    the six dense decoders are counted under the baseline rules, single-
+    pod and multi-pod, and every other train case is null with a reason
+    that names what is missing."""
     res = dryrun.run_case("glm4-9b", "decode_32k", save=False)
     assert res["collective_reason"] is None
     coll = res["collective_bytes"]
@@ -513,14 +519,27 @@ def test_dry_run_counts_the_dense_decoders_only():
     assert "MoE-TP" in moe["collective_reason"]
     mesh = make_production_mesh()
     for arch, kind, kw, why in (
-            ("smollm-135m", "train", {}, "training across ranks"),
             ("mamba2-370m", "prefill", {}, "SSM"),
             ("whisper-base", "decode", {}, "encoder-decoder"),
             ("mixtral-8x7b", "prefill", {"expert_parallel": True},
+             "expert-parallel"),
+            ("smollm-135m", "train", {"fsdp": True}, "ZeRO-3 training"),
+            ("mamba2-370m", "train", {}, "SSM"),
+            ("whisper-base", "train", {}, "encoder-decoder"),
+            ("mixtral-8x7b", "train", {}, "MoE-TP"),
+            ("jamba-v0.1-52b", "train", {}, "SSM"),
+            ("llama4-scout-17b-a16e", "train", {"expert_parallel": True},
              "expert-parallel")):
         rules = PT.tp_rules(axis_sizes=mesh.axis_sizes, **kw)
         reason = dryrun.collective_reason(get_config(arch), kind, rules)
         assert why in reason, reason
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for arch in DENSE:
+            rules = PT.tp_rules(multi_pod=multi_pod,
+                                axis_sizes=mesh.axis_sizes)
+            assert dryrun.collective_reason(get_config(arch), "train",
+                                            rules) is None, arch
 
 
 DENSE = ("smollm-135m", "llama3.2-1b", "deepseek-7b", "glm4-9b",
@@ -666,18 +685,33 @@ def test_moe_ssm_and_whisper_refuse_tensor_parallelism():
 
 
 def test_train_step_refuses_tensor_parallelism():
-    cfg = get_config(ARCH).reduced()
-    step = make_train_step(cfg, AdamW())
-    with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
-                                            match="train_step"):
-        step(None, None, None)
+    """The train step runs the dense decoders under tensor parallelism
+    (``tests/test_torch_train_parallel.py``); MoE-TP, the SSM block and
+    the encoder-decoder it refuses before any work, each naming what is
+    not ported; under the expert-parallel rules a MoE config runs."""
+    for arch, what in (("mixtral-8x7b", "MoE-TP"),
+                       ("mamba2-370m", "SSM block"),
+                       ("jamba-v0.1-52b", "MoE-TP"),
+                       ("whisper-base", "encoder-decoder")):
+        step = make_train_step(get_config(arch).reduced(), AdamW())
+        with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
+                                                match=what):
+            step(None, None, None)
+    step = make_train_step(get_config(ARCH).reduced(), AdamW())
+    with PT.use_rules(_tp()), pytest.raises(AttributeError):
+        step(None, None, None)   # past the refusals: no parameters given
 
 
 def test_gradient_through_a_tensor_parallel_collective_raises():
-    """The forward across ranks runs under autograd; a gradient that
-    reaches a TP collective raises (here on ``meta``, a rank's block of
-    attention and MLP under a ``CountingMesh``)."""
-    cfg = get_config(ARCH).reduced()
+    """The forward across ranks runs under autograd (here on ``meta``, a
+    rank's block of attention and MLP under a ``CountingMesh`` at 1 x 4,
+    4 q heads over 1 kv head). A gradient through the sequence-cut decode
+    combine raises; through the other TP collectives it flows, each
+    counting its transpose: the block inputs' all-reduces and the K/V
+    gathers' reduce-scatters in the backward, nothing for
+    ``tp_all_reduce``'s pass-through."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), n_heads=4,
+                              n_kv_heads=1)
     rules = _tp((1, 4))
     c = R.coordinates(MeshDesc((1, 4), AXES), 0)
     p = R.rank_block(cfg, ("params",), (None,), (abstract_params(
@@ -686,18 +720,34 @@ def test_gradient_through_a_tensor_parallel_collective_raises():
             for k, w in p["blocks"][0]["attn"].items()}
     mlp = {k: w[0].requires_grad_(True)
            for k, w in p["blocks"][0]["mlp"].items()}
-    x = torch.empty((2, 8, cfg.d_model), device="meta")
+    x = torch.empty((2, 8, cfg.d_model), device="meta", requires_grad=True)
     pos = torch.empty((2, 8), dtype=torch.int32, device="meta")
     with PT.use_rules(rules):
+        collectives.reset()
         h, _ = L.attention_block(attn, x, pos, cfg)
         y = L.mlp_block(mlp, h, cfg)
+        forward = collectives.collective_bytes()
     assert y.shape == x.shape
-    for leaf in (attn["wq"], mlp["wi"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            torch.autograd.grad(y.sum(), leaf, retain_graph=True)
+    tokens, d, kv = 2 * 8, cfg.d_model, cfg.kv_dim
+    assert forward == {"all-reduce": 2 * tokens * d * 4,
+                       "all-gather": 2 * tokens * kv * 4}
+    collectives.reset()
+    grads = torch.autograd.grad(y.sum(), [x, attn["wq"], attn["norm"],
+                                          mlp["wi"], mlp["norm"]])
+    assert [g.shape for g in grads] == [x.shape, attn["wq"].shape,
+                                        attn["norm"].shape, mlp["wi"].shape,
+                                        mlp["norm"].shape]
+    assert collectives.collective_bytes() == {
+        "all-reduce": 2 * tokens * d * 4,
+        "reduce-scatter": 2 * tokens * kv // 4 * 4}
     z = torch.empty((3,), device="meta", requires_grad=True)
     collectives.reset()
     out = collectives.tp_all_reduce(z, rules.mesh, "model")
     assert collectives.collective_bytes() == {"all-reduce": 12}
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        out.sum().backward()
+    assert torch.autograd.grad(out.sum(), z)[0].shape == z.shape
+    assert collectives.collective_bytes() == {"all-reduce": 12}
+    for fn, args in ((collectives.all_gather, (rules.mesh, "model", 0)),
+                     (collectives.all_reduce, (rules.mesh, "model", "max"))):
+        out = collectives.serving_only(fn, z, *args)
+        with pytest.raises(NotImplementedError, match="decode combine"):
+            out.sum().backward()

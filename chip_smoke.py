@@ -11,7 +11,10 @@ Phases (every failure raises and ends the run with a non-zero code):
      a window, and flash at whisper-base's two non-causal forms at head
      dim 64, each timed with its own bound; for ssd_scan an initial
      state, a padded tail, a single chunk and two rows of which one is
-     padded, and the device kernels a call issues), with its device time
+     padded, and the device kernels a call issues; checked and timed
+     also at a rank's heads under tensor parallelism, mamba2-370m's 32
+     over 1 x 2: H 16, its launches those of 3t's mamba2 run), with its
+     device time
      a launch on cold inputs (``ms``) and a
      single call's time (``call_ms``, host path included), its plain
      version's time, a PyTorch call that computes the same function
@@ -105,20 +108,38 @@ Phases (every failure raises and ends the run with a non-zero code):
   3t. tensor parallelism across ranks (the baseline rules, ``tp_rules()``:
      each rank its block of every leaf and cache, the collectives of the
      reference's program at the same shard points): the case builders'
-     prefill 2 x 2048 and a decode step over its caches, full size, bf16;
-     on one card glm4-9b at 1 x 2, both ranks over gloo; where 4 cards
-     exist, over NCCL with a card a rank, glm4-9b at 1 x 2 and 1 x 4 (its
-     kv columns gathered, the decode cache cut over its sequence and
-     combined across ranks) and llava-next-mistral-7b at 1 x 4 and 2 x 2
-     (with image features). Held against one process in bf16 and in f32:
-     each rank's logits and cache blocks no farther from the f32 run than
-     one process's bf16 blocks are (TP_MAX_RATIO on the largest
-     difference, TP_MEAN_RATIO on the mean; the counts outside the bf16
-     rule printed), greedy tokens equal up to a reported bf16 tie, a flash a layer a prefill and a decode (or, over a
-     sequence-cut cache, a flash) a layer a decode step, and the
-     collective bytes of their closed form; warm seconds beside one
-     process's; glm4's decode step traced on rank 0 (one more step under
-     torch.profiler: device ms, busy share, top kernels);
+     prefill 2 x 2048 and a decode step over its caches, full width,
+     bf16; on one card at 1 x 2, both ranks over gloo: glm4-9b and
+     mamba2-370m at full size (the SSM block on each rank's heads: its
+     fused activation, conv weights and tail gathered, out_norm's sums
+     of squares and w_out summed over the ranks), mixtral-8x7b at 8 of
+     32 layers (MoE-TP: each expert's 'ff' cut, the expert buffers
+     summed before the combine) and jamba-v0.1-52b at one 8-layer period
+     (attention, SSM, MLP and MoE); where 4 cards exist, over NCCL with
+     a card a rank, glm4-9b at 1 x 2 and 1 x 4 (its kv columns
+     gathered, the decode cache cut over its sequence and combined
+     across ranks), mamba2-370m at 1 x 2, llava-next-mistral-7b at
+     1 x 4 and 2 x 2 (with image features), jamba's period at 1 x 4, and
+     mixtral-8x7b and jamba-v0.1-52b at full depth at 1 x 4 (about 23
+     and 26 GB of bf16 weights a rank, which no one process holds). Held
+     against one process in bf16 and in f32 (but for the two full-depth
+     runs): each rank's logits block, and apart from it its cache
+     blocks, no farther from the f32 run than one process's bf16 blocks
+     are (TP_MAX_RATIO on the largest difference, TP_MEAN_RATIO on the
+     mean; the counts outside the bf16 rule printed), greedy tokens
+     equal up to a reported bf16 tie; with MoE layers, only the batch
+     rows whose every token the rank routed as one process did (the
+     tokens routed elsewhere counted and printed), and the same ranks
+     run in f32 within TP_F32_SCALE of each tensor's scale of the f32
+     process, every row; the full-depth runs: the blocks put together
+     finite, those the ranks share bitwise equal, each rank's greedy
+     tokens equal; every run: a
+     flash a prefill and a decode (or, over a sequence-cut cache, a
+     flash) a decode step for each attention layer, an ssd_scan a
+     prefill for each SSM layer, and the collective bytes of their
+     closed form; warm seconds beside one process's; the decode step of
+     glm4 and of the full-depth runs traced on rank 0 (one more step
+     under torch.profiler: device ms, busy share, top kernels);
   4. serve, dense: EPDCluster at full width and depth in bf16, 4 requests
      (two sharing one image) through submit + run_until_done;
   5. serve, paged: the same requests through run_continuous on a paged
@@ -179,17 +200,19 @@ Phases (every failure raises and ends the run with a non-zero code):
      smollm-135m at full size, bf16, 7t's batch of 4 x 2048, two steps
      at 2 x 1 (pure data parallel: the gradients all-reduced in one flat
      f32 buffer over the two microbatches) and at 1 x 2 (q and K/V
-     columns gathered, 'ff' and 'vocab' cut), both ranks on one card
-     over gloo; where 4 cards exist, over NCCL with a card a rank,
+     columns gathered, 'ff' and 'vocab' cut), and mixtral-8x7b at full
+     width, 1 layer, 2 x 1024 under MoE-TP at 1 x 2, both ranks on one
+     card over gloo; where 4 cards exist, over NCCL with a card a rank,
      smollm-135m at 2 x 2, glm4-9b (2 layers) at 1 x 4 and mixtral-8x7b
-     (1 layer) under the expert-parallel rules at 2 x 2. Held on every
+     (1 layer) at 2 x 2 under the expert-parallel rules and under
+     MoE-TP. Held on every
      rank against one process of the same plan in bf16 and in f32: the
      loss of each step, bitwise equal across ranks; the digests of the
      rank's blocks of the new parameters, mu and nu no farther from the
      f32 run's than one bf16 process's; flash's forward and gradient
      launches; the collective bytes of their closed form
-     (``_train_bytes``); seconds a step against one process's, and the
-     first step traced on rank 0;
+     (``_train_bytes``); seconds a step against one process's, and one
+     more step after the last traced on rank 0;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases,
      and phase 7t's step time, tokens/s and peak memory.
 Every serving cluster models its transfer charges on the H100 cost
@@ -297,32 +320,54 @@ RANKS_TIMEOUT = 600      # seconds a group of ranks may take
 # phase 3t: tensor parallelism across ranks under the baseline rules, 3s's
 # prefill (batch, padded length, true lengths), then one decode step
 TP_PREFILL = (2, 2048, (2048, 1900))
-TP_ONE_CARD = (("glm4-9b", (1, 2)),)
+# (arch, mesh, layers (None: all), held to one process): glm4-9b and
+# mamba2-370m at full size, mixtral-8x7b at 3e's 8 of 32 layers (MoE-TP),
+# jamba-v0.1-52b at one 8-layer period (1 attention, 7 SSM, 4 MoE layers,
+# about 26.6 GB of bf16 weights; its f32 yardstick alone about 53 GB)
+TP_ONE_CARD = (("glm4-9b", (1, 2), None, True),
+               ("mamba2-370m", (1, 2), None, True),
+               ("mixtral-8x7b", (1, 2), MOE_LAYERS, True),
+               ("jamba-v0.1-52b", (1, 2), 8, True))
 # a rank's distance from the f32 run against one process's, over the
 # logits and over the caches: the mean, and the largest difference (an
 # extreme over up to 1e8 values: up to 1.26 measured on an H100 80GB HBM3,
 # so the wider margin)
 TP_MAX_RATIO, TP_MEAN_RATIO = 1.5, 1.10
-TP_FOUR_CARDS = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)),
-                 ("llava-next-mistral-7b", (1, 4)),
-                 ("llava-next-mistral-7b", (2, 2)))
+# the ranks in f32 against the f32 process: the largest difference of a
+# tensor over its largest magnitude (the order of the sums is the one
+# difference; bf16's own rounding is 4e-3 of a value)
+TP_F32_SCALE = 1e-3
+# at full depth mixtral-8x7b (about 23 GB of bf16 weights a rank at 1 x 4)
+# and jamba-v0.1-52b (about 26 GB) fit no one process: their ranks are
+# held to each other and to the closed form only
+TP_FOUR_CARDS = (("glm4-9b", (1, 2), None, True),
+                 ("glm4-9b", (1, 4), None, True),
+                 ("mamba2-370m", (1, 2), None, True),
+                 ("llava-next-mistral-7b", (1, 4), None, True),
+                 ("llava-next-mistral-7b", (2, 2), None, True),
+                 ("jamba-v0.1-52b", (1, 4), 8, True),
+                 ("mixtral-8x7b", (1, 4), None, False),
+                 ("jamba-v0.1-52b", (1, 4), None, False))
 # the ranks' decode step traced (rank 0's printed): the kv heads cut and
-# the cache cut over its sequence
-TP_TRACED = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)))
+# the cache cut over its sequence; the full-depth MoE and hybrid runs
+TP_TRACED = (("glm4-9b", (1, 2)), ("glm4-9b", (1, 4)),
+             ("mixtral-8x7b", (1, 4)), ("jamba-v0.1-52b", (1, 4)))
 # phase 7r: the train step across ranks, TRAIN_RANK_STEPS steps a run:
 # (arch, mesh, layers (None: all), batch x length, expert-parallel rules)
 TRAIN_RANK_STEPS = 2
 TRAIN_ONE_CARD = (("smollm-135m", (2, 1), None, (TRAIN_BATCH, TRAIN_SEQ),
                    False),
                   ("smollm-135m", (1, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
-                   False))
+                   False),
+                  ("mixtral-8x7b", (1, 2), 1, (2, 1024), False))
 # one process, which the ranks are held to, keeps bf16 weights, their f32
 # gradient sum and AdamW's two f32 moments, old and new: about 92 GB for
 # glm4-9b at 8 layers and more for mixtral at 4, so 2 and 1 layers
 TRAIN_FOUR_CARDS = (("smollm-135m", (2, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
                      False),
                     ("glm4-9b", (1, 4), 2, (2, 2048), False),
-                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), True))
+                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), True),
+                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), False))
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -1173,7 +1218,9 @@ def check_flash_bwd(torch, dev):
 def check_ssd(torch, dev):
     """ssd_scan against its plain version at mamba2-370m's prefill shape
     (B 1, S 2048, H 32, P 64, N 128, chunk 256), a single chunk and two
-    rows of which one is padded; the device kernels one call issues."""
+    rows of which one is padded; the device kernels one call issues. The
+    same at a rank's share of the heads under tensor parallelism at 1 x 2
+    (H 16, phase 3t's mamba2 run): checked and timed, under "rank"."""
     from repro_torch.kernels.ssd_scan import kernel as SSD
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -1181,23 +1228,25 @@ def check_ssd(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(4321)
     B, S, H, P, N, chunk = 1, SSM_MAX_LEN, 32, 64, 128, 256
 
-    def inputs(dtype, s=S, init=False, n_pad=0, bsz=B, pad_rows=None):
+    def inputs(dtype, s=S, init=False, n_pad=0, bsz=B, pad_rows=None,
+               heads=H):
         dt_ = getattr(torch, dtype)
 
         def randn(shape, scale=1.0):
             return scale * torch.randn(shape, generator=gen, device=dev)
 
-        dt = torch.nn.functional.softplus(randn((bsz, s, H)))
+        dt = torch.nn.functional.softplus(randn((bsz, s, heads)))
         if n_pad:
             dt[pad_rows if pad_rows is not None else slice(None), -n_pad:] = 0
-        return (randn((bsz, s, H, P)).to(dt_), dt,
-                -torch.exp(randn((H,), 0.3)),
+        return (randn((bsz, s, heads, P)).to(dt_), dt,
+                -torch.exp(randn((heads,), 0.3)),
                 randn((bsz, s, N), 0.3).to(dt_),
-                randn((bsz, s, N), 0.3).to(dt_), torch.ones((H,), device=dev),
-                randn((bsz, H, P, N), 0.1) if init else
-                torch.zeros((bsz, H, P, N), device=dev))
+                randn((bsz, s, N), 0.3).to(dt_),
+                torch.ones((heads,), device=dev),
+                randn((bsz, heads, P, N), 0.1) if init else
+                torch.zeros((bsz, heads, P, N), device=dev))
 
-    errs = []
+    errs, rank_errs = [], []
     for label, dtype, kw in [
             ("S2048", "bfloat16", {}),
             ("S2048", "float32", {}),
@@ -1205,7 +1254,9 @@ def check_ssd(torch, dev):
             ("S2048 dt=0 over the last 100", "bfloat16", dict(n_pad=100)),
             ("S96 one chunk of 96", "bfloat16", dict(s=96)),
             ("B2 S2048 init, dt=0 over the last 700 of row 1 only",
-             "bfloat16", dict(bsz=2, init=True, n_pad=700, pad_rows=[1]))]:
+             "bfloat16", dict(bsz=2, init=True, n_pad=700, pad_rows=[1])),
+            ("S2048 H16, a rank's heads at 1 x 2", "bfloat16",
+             dict(heads=H // 2, init=True))]:
         args = inputs(dtype, **kw)
         c = min(chunk, args[0].shape[1])
         y, fin = ssd_scan(*args[:6], c, args[6])
@@ -1220,33 +1271,39 @@ def check_ssd(torch, dev):
             f"tol={SSD_STATE_TOL} {'ok' if ok else 'FAIL'}")
         assert ok and torch.isfinite(y.float()).all(), (label, err, serr)
         if dtype == "bfloat16":
-            errs.append(err)
-    # the serving path's call: bf16, the fresh cache's zero state as init
-    def make():
-        args = inputs("bfloat16")
-        return (*args[:6], chunk, args[6]), None
-    first = make()
-    x = first[0][0]
-    n_dev = device_kernels(torch, lambda: ssd_scan(*first[0]))
-    log(f"  ssd_scan: {n_dev} device kernels a call")
-    assert n_dev == SSD.DEVICE_KERNELS, (n_dev, SSD.DEVICE_KERNELS)
-    # work of the kernel's own 64-token sub-chunks: C·Bᵀ and the
-    # intra-chunk product over lower-triangular pairs, the inter-chunk
-    # term and the state update over every (token, p, n)
-    sub = 64
-    pairs = sum(n * (n + 1) // 2 for n in
-                [sub] * (S // sub) + ([S % sub] if S % sub else []))
-    flops = 2 * pairs * (N + H * P) + 2 * 2 * H * S * P * N
-    nbytes = (2 * 2 * x.numel() + 2 * 2 * B * S * N + 4 * B * S * H
-              + 4 * 2 * H + 4 * 2 * B * H * P * N)
-    # library_ms None: no single PyTorch call computes the SSD scan
-    res = dict(max_abs_err=max(errs), device_kernels=n_dev,
-               **timing(torch, first, make, ssd_scan, ssd_chunked, None,
-                        nbytes, flops, plain_n=20,
-                        shape=f"B{B} S{S} H{H} P{P} N{N} chunk{chunk} bf16, "
-                              f"{flops / 1e9:.3f} GFLOP, "
+            (rank_errs if "heads" in kw else errs).append(err)
+
+    def timed(heads):
+        """The serving path's call at ``heads`` heads: bf16, the fresh
+        cache's zero state as init."""
+        def make():
+            args = inputs("bfloat16", heads=heads)
+            return (*args[:6], chunk, args[6]), None
+        first = make()
+        x = first[0][0]
+        n_dev = device_kernels(torch, lambda: ssd_scan(*first[0]))
+        log(f"  ssd_scan H{heads}: {n_dev} device kernels a call")
+        assert n_dev == SSD.DEVICE_KERNELS, (n_dev, SSD.DEVICE_KERNELS)
+        # work of the kernel's own 64-token sub-chunks: C·Bᵀ and the
+        # intra-chunk product over lower-triangular pairs, the inter-chunk
+        # term and the state update over every (token, p, n)
+        sub = 64
+        pairs = sum(n * (n + 1) // 2 for n in
+                    [sub] * (S // sub) + ([S % sub] if S % sub else []))
+        flops = 2 * pairs * (N + heads * P) + 2 * 2 * heads * S * P * N
+        nbytes = (2 * 2 * x.numel() + 2 * 2 * B * S * N + 4 * B * S * heads
+                  + 4 * 2 * heads + 4 * 2 * B * heads * P * N)
+        # library_ms None: no single PyTorch call computes the SSD scan
+        return dict(device_kernels=n_dev, **timing(
+            torch, first, make, ssd_scan, ssd_chunked, None, nbytes, flops,
+            plain_n=20, shape=f"B{B} S{S} H{heads} P{P} N{N} chunk{chunk} "
+                              f"bf16, {flops / 1e9:.3f} GFLOP, "
                               f"{nbytes / 1e6:.2f} MB"))
+
+    res = dict(max_abs_err=max(errs), **timed(H))
     log_timing("ssd_scan", res)
+    res["rank"] = dict(max_abs_err=max(rank_errs), **timed(H // 2))
+    log_timing("ssd_scan at a rank's heads", res["rank"])
     return res
 
 
@@ -2006,21 +2063,25 @@ def meta_dryrun(smi):
 
 def _greedy(torch, label, got, want) -> int:
     """Hold each row's greedy token of ``got`` to ``want``'s (f32 logits
-    of bf16 runs): equal, or a near-tie of ``want``, the two tokens its
-    top two within TIE_ULPS bf16 ulps of its top logit (reported). Returns
-    the rows where they part."""
+    of bf16 runs): equal, or a near-tie of ``want``: ``got``'s token
+    within TIE_ULPS bf16 ulps of ``want``'s top logit (reported, with the
+    tokens of ``want`` that lie within that gap of its top: 2 where two
+    tie, more where several do, as random weights give a flat
+    distribution over a large vocabulary). Returns the rows where they
+    part."""
     parted = 0
     for row, (a, b) in enumerate(zip(got.argmax(-1).tolist(),
                                      want.argmax(-1).tolist())):
         if a == b:
             continue
-        top2 = torch.topk(want[row], 2)
-        gap = abs(want[row, a] - want[row, b]).item()
-        ulp = 2.0 ** (math.floor(math.log2(abs(top2.values[0].item()))) - 7)
-        ok = set(top2.indices.tolist()) == {a, b} and gap <= TIE_ULPS * ulp
+        top = want[row, b].item()
+        gap = top - want[row, a].item()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+        tied = int((want[row] >= want[row, a]).sum())
+        ok = gap <= TIE_ULPS * ulp
         log(f"    {label} row {row}: greedy {a} against {b}, gap "
-            f"{gap / ulp:.2f} bf16 ulps (at most {TIE_ULPS}): "
-            f"{'a bf16 tie' if ok else 'FAIL'}")
+            f"{gap / ulp:.2f} bf16 ulps (at most {TIE_ULPS}), {tied} tokens "
+            f"within it: {'a bf16 tie' if ok else 'FAIL'}")
         assert ok, (label, row, a, b, gap, ulp)
         parted += 1
     return parted
@@ -2235,6 +2296,14 @@ def expert_parallel_ranks(torch, dev, smi):
 # phase 3t: tensor parallelism across ranks
 # ---------------------------------------------------------------------------
 
+def _n_layers(cfg, mixers=None, ffn=None) -> int:
+    """Layers of the decoder with one of ``mixers`` (or with ``ffn``)."""
+    return cfg.n_repeats * sum(
+        (mixers is None or sp.mixer in mixers) and (ffn is None or
+                                                   sp.ffn == ffn)
+        for sp in cfg.pattern)
+
+
 def _tp_bytes(cfg, mesh, b, s, text, combine) -> dict:
     """The closed form of the collective result bytes a rank moves in one
     step under the baseline rules at ``mesh`` (data, model), activations
@@ -2242,31 +2311,49 @@ def _tp_bytes(cfg, mesh, b, s, text, combine) -> dict:
     of them looked up in the embedding. All-reduces (bf16): the embedding
     where 'model' divides the vocabulary (one rank's row, exact), and
     attention's and the MLP's wo where it divides q_dim and d_ff (the
-    partial products, as the reference sums them); all-gathers (bf16):
-    q's and k/v's columns where the columns are cut and the heads are
-    not; ``combine`` (a decode step over a dense cache cut over its
-    sequence): q's heads gathered where they are cut, and the f32
-    log-sum-exp maxima and weighted outputs all-reduced."""
+    partial products, as the reference sums them), a MoE layer's expert
+    buffers (rows, E, C, d) where it divides 'ff', an SSM layer's w_out
+    partial products; all-gathers (bf16): q's and k/v's columns where the
+    columns are cut and the heads are not, an SSM layer's fused
+    activation (rows, s, 2 inner + 2 N + heads), conv weights and bias
+    and conv tail (rows, W - 1, inner + 2 N); an SSM layer's out_norm
+    sums of squares (rows, s) all-reduced in f32; ``combine`` (a decode
+    step over a dense cache cut over its sequence): q's heads gathered
+    where they are cut, and the f32 log-sum-exp maxima and weighted
+    outputs all-reduced."""
+    from repro_torch.models.moe import capacity
     m = mesh[1]
     rows = b // mesh[0]
     tokens = rows * s
-    d, hd, n = cfg.d_model, cfg.head_dim, cfg.n_layers
+    d, hd = cfg.d_model, cfg.head_dim
+    n = _n_layers(cfg, ("attn", "swa"))
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     ar = ag = 0
     if cfg.vocab % m == 0:
         ar += rows * text * d * 2
-    if nq * hd % m == 0:
+    if n and nq * hd % m == 0:
         ar += n * tokens * d * 2
-    if cfg.d_ff % m == 0:
-        ar += n * tokens * d * 2
-    if nq * hd % m == 0 and nq % m:
+    if cfg.d_ff and cfg.d_ff % m == 0:
+        ar += _n_layers(cfg, ffn="mlp") * tokens * d * 2
+        if cfg.moe is not None:
+            ar += _n_layers(cfg, ffn="moe") * rows * cfg.moe.n_experts * \
+                capacity(cfg, s) * d * 2
+    if n and nq * hd % m == 0 and nq % m:
         ag += n * tokens * nq * hd * 2
-    if nkv * hd % m == 0 and nkv % m:
+    if n and nkv * hd % m == 0 and nkv % m:
         ag += 2 * n * tokens * nkv * hd * 2
     if combine:
         if nq % m == 0:
             ag += n * rows * nq * hd * 2
         ar += n * rows * nq * (hd + 2) * 4
+    n_ssm = _n_layers(cfg, ("ssm",))
+    if n_ssm:
+        ssm = cfg.ssm
+        inner, N, W = ssm.inner_dim(d), ssm.state_dim, ssm.conv_width
+        fused, conv = 2 * inner + 2 * N + ssm.n_heads(d), inner + 2 * N
+        ag += n_ssm * (tokens * fused + W * conv + conv
+                       + rows * (W - 1) * conv) * 2
+        ar += n_ssm * (tokens * 4 + tokens * d * 2)
     return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag)) if v}
 
 
@@ -2304,95 +2391,168 @@ def _anchored(torch, got, want, truth):
     return err, outside, outside_want, r_max, r_mean
 
 
-def _tp_run(torch, dev, arch, mesh, backend) -> dict:
-    """One model at one mesh for phase 3t: the single-process plan in bf16
-    and in f32 first (their outputs kept on the host, their card memory
-    freed), then the ranks. Each rank's logits and cache blocks are held
-    to the f32 run no farther than one process's bf16 blocks are
-    (``_anchored``): two bf16 runs whose sums are ordered otherwise part
-    by as much as either does from f32, beyond the bf16 rule at tens of
-    thousands of logits (``PERF.md`` §6). Returns the seconds and
-    counts."""
+def _tp_run(torch, dev, arch, mesh, backend, layers, anchored) -> dict:
+    """One model at one mesh for phase 3t (``layers``: its depth, None for
+    all). ``anchored``: the single-process plan in bf16 and in f32 first
+    (their outputs kept on the host, their card memory freed, one at a
+    time), then the ranks in bf16. Each rank's logits block, and apart
+    from it its cache blocks, are held to the f32 run no farther than one
+    process's bf16 blocks are (``_anchored``): two bf16 runs whose sums
+    are ordered otherwise part by as much as either does from f32, beyond
+    the bf16 rule at tens of thousands of logits (``PERF.md`` §6). The
+    greedy tokens equal one process's up to a reported bf16 tie. With MoE
+    layers each step's routing is kept (``Plan.routes``) and a batch row
+    is held so only where every token of it, in this step and the ones
+    before, went to the experts that one process sent it to: a token
+    routed elsewhere in one bf16 run moves its row several times as far
+    as the sums' order does (``_routing_parted``, printed); the MoE runs'
+    ranks are also run in f32 and held to the f32 process within
+    TP_F32_SCALE of each tensor's scale, every row (``_tp_f32``). Without
+    a single process (a model no one process holds): the ranks' blocks
+    put together (blocks that ranks share bitwise equal), finite, each rank's greedy tokens
+    (taken from its gathered logits) equal to the others' and to the
+    argmax of the blocks put together. Either way one flash a prefill
+    and one decode kernel a decode step (flash over a sequence-cut
+    cache) for each attention layer, one ``ssd_scan`` a prefill for each
+    SSM layer, and the collective bytes of the closed form. Returns the
+    seconds and counts."""
     import shutil
 
     from repro_torch.launch import ranks as R
     from repro_torch.launch.mesh import MeshDesc
     from repro_torch.models.partitioning import kv_heads_cut
-    from repro_torch.models.transformer import cache_pspecs
+    from repro_torch.models.transformer import cache_pspecs, make_caches
 
     desc = MeshDesc(mesh, ("data", "model"))
-    plan = R.Plan(arch, reduced=False, dtype="bfloat16",
+    plan = R.Plan(arch, reduced=False, layers=layers, dtype="bfloat16",
                   expert_parallel=False, prefill=TP_PREFILL, decode=1,
                   warm=True)
-    ranked = dataclasses.replace(plan, trace=(arch, mesh) in TP_TRACED)
     cfg = R.plan_config(plan)
+    moe = anchored and cfg.moe is not None
+    plan = dataclasses.replace(plan, routes=moe)
+    ranked = dataclasses.replace(plan, trace=(arch, mesh) in TP_TRACED)
     b, s, _ = TP_PREFILL
     n_mm = (min(cfg.frontend.tokens_per_item, s // 2)
             if cfg.frontend is not None else 0)
-    tag = f"{arch} at {mesh[0]} x {mesh[1]}"
-    out = {"backend": backend}
+    tag = f"{cfg.name} at {mesh[0]} x {mesh[1]}"
+    out = {"backend": backend, "layers": cfg.n_layers, "anchored": anchored}
 
     def single(p):
         res = R.run_plan(p, desc, dev)
-        res = {k: dict(res[k], out=R.to_cpu(res[k]["out"]))
-               for k in ("prefill", "decode")}
+        res = {k: R.to_cpu(res[k]) for k in ("prefill", "decode")}
         release(torch)
         return res
 
     t0 = time.perf_counter()
-    one = single(plan)
-    f32 = single(dataclasses.replace(plan, dtype="float32", warm=False))
+    if anchored:
+        one = single(plan)
+        f32 = single(dataclasses.replace(plan, dtype="float32", warm=False))
     out["one_process_s"] = time.perf_counter() - t0
     run_dir = ROOT / "build" / f"ranks_3t_{mesh[0]}x{mesh[1]}"
     shutil.rmtree(run_dir, ignore_errors=True)
+
+    def ranks(p):
+        res = [g[0] for g in R.run_ranks(desc, [("plan", dict(plan=p))],
+                                         backend=backend, device="cuda",
+                                         run_dir=run_dir,
+                                         timeout=RANKS_TIMEOUT)]
+        shutil.rmtree(run_dir, ignore_errors=True)
+        return res
+
     t0 = time.perf_counter()
-    got = [g[0] for g in R.run_ranks(desc, [("plan", dict(plan=ranked))],
-                                     backend=backend, device="cuda",
-                                     run_dir=run_dir, timeout=RANKS_TIMEOUT)]
+    got = ranks(ranked)
     out["ranks_s"] = time.perf_counter() - t0
-    shutil.rmtree(run_dir, ignore_errors=True)
 
     rules = R.block_rules(plan, desc)
     specs = (rules.spec(("batch", "act_vocab")), cache_pspecs(cfg, rules))
+    if moe:
+        # the same ranks in f32, held to the f32 process: the order of
+        # the sums is the one difference
+        for kind, err in _tp_f32(torch, cfg, desc, rules, specs, ranks(
+                dataclasses.replace(plan, dtype="float32", warm=False)),
+                f32, tag).items():
+            out.setdefault(kind, {})["f32_scaled_err"] = err
+    n_attn = _n_layers(cfg, ("attn", "swa"))
     heads_cut = kv_heads_cut(rules, cfg.n_kv_heads)
     decoder = "decode_attention" if heads_cut else "flash_attention"
-    for kind, seq, text, wrapper in (
-            ("prefill", s, s - n_mm, "flash_attention"),
-            ("decode", 1, 1, decoder)):
-        want, truth = one[kind]["out"], f32[kind]["out"]
+    for kind, seq, text, kernels in (
+            ("prefill", s, s - n_mm,
+             {"flash_attention": n_attn,
+              "ssd_scan": _n_layers(cfg, ("ssm",))}),
+            ("decode", 1, 1, {decoder: n_attn})):
+        kernels = {k: v for k, v in kernels.items() if v}
         bytes_want = _tp_bytes(cfg, mesh, b, seq, text,
                                combine=kind == "decode" and not heads_cut)
+        if anchored:
+            want, truth = one[kind]["out"], f32[kind]["out"]
+            routed = _routing_parted(torch, desc, got, one, kind)
+        else:
+            want = (torch.empty((b, cfg.vocab), device="meta"),
+                    make_caches(cfg, b, s, dtype=torch.bfloat16,
+                                device="meta"))
         for r, res in enumerate(got):
+            logits, caches = res[kind]["out"]
+            assert torch.isfinite(logits).all(), (tag, r, kind)
+            n = res[kind]["launches"]
+            assert all(n[k] == v for k, v in kernels.items()), (
+                tag, r, kind, n, kernels)
+            coll = res[kind]["collectives"]
+            assert coll == bytes_want, (tag, r, kind, coll, bytes_want)
+            launched = ", ".join(f"{n[k]} {k}" for k in kernels)
+            held = (f"{launched or 'no kernel'}; collectives {coll} = "
+                    f"closed form, over {res[kind]['calls']} calls")
+            if not anchored:
+                log(f"  {tag}, rank {r} {kind}: {res[kind]['s']:.4f} s; "
+                    f"{held}")
+                continue
             coords = R.coordinates(desc, r)
             mine, exact = (R.rank_block(cfg, ("batch", "batch"), specs, t,
                                         rules, coords) for t in (want, truth))
-            logits, caches = res[kind]["out"]
-            assert torch.isfinite(logits).all(), (tag, r, kind)
-            lg = _anchored(torch, logits, mine[0], exact[0])
-            ca = _anchored(torch, caches, mine[1], exact[1])
-            n = res[kind]["launches"]
-            assert n[wrapper] == cfg.n_layers, (tag, r, kind, n)
-            coll = res[kind]["collectives"]
-            assert coll == bytes_want, (tag, r, kind, coll, bytes_want)
+            keep = [i for i, n_routed in enumerate(routed[r]) if not n_routed]
+            routing = (f"; tokens routed elsewhere than one process (this "
+                       f"step and those before) a row: {routed[r]}"
+                       if moe else "")
+            if not keep:
+                log(f"  {tag}, rank {r} {kind}: {res[kind]['s']:.4f} s (one "
+                    f"process {one[kind]['s']:.4f} s); no row held to one "
+                    f"process{routing}; {held}")
+                continue
+            lg = _anchored(torch, *(_rows_of(torch, t, keep, 0)
+                                    for t in (logits, mine[0], exact[0])))
+            ca = _anchored(torch, *(_rows_of(torch, t, keep, 1)
+                                    for t in (caches, mine[1], exact[1])))
             log(f"  {tag}, rank {r} {kind}: {res[kind]['s']:.4f} s (one "
-                f"process {one[kind]['s']:.4f} s); logits block: max "
-                f"|rank - one process| {lg[0]:.3e}, outside the bf16 rule "
-                f"{lg[1]} of {logits.numel()} (one process against f32: "
-                f"{lg[2]}), distance from f32 max / mean {lg[3]:.3f} / "
-                f"{lg[4]:.3f} of one process's; cache block: max "
-                f"{ca[0]:.3e}, outside {ca[1]} (one process {ca[2]}), "
-                f"{ca[3]:.3f} / {ca[4]:.3f}; {n[wrapper]} {wrapper}; "
-                f"collectives {coll} = closed form, over "
-                f"{res[kind]['calls']} calls")
-        # the ranks' blocks put back together: greedy tokens against one
-        # process's, equal up to a reported bf16 tie
+                f"process {one[kind]['s']:.4f} s); rows {keep} held"
+                f"{routing}; logits block: max |rank - one process| "
+                f"{lg[0]:.3e}, outside the bf16 rule {lg[1]} (one process "
+                f"against f32: {lg[2]}), distance from f32 max / mean "
+                f"{lg[3]:.3f} / {lg[4]:.3f} of one process's; cache block: "
+                f"max {ca[0]:.3e}, outside {ca[1]} (one process {ca[2]}), "
+                f"{ca[3]:.3f} / {ca[4]:.3f}; {held}")
+        # the ranks' blocks put back together (blocks that ranks share
+        # must be bitwise equal)
         whole = R.gather_blocks(cfg, ("batch", "batch"), specs,
                                 [res[kind]["out"] for res in got], want,
                                 rules, desc)
-        parted = _greedy(torch, f"{tag} {kind}", whole[0], want[0])
-        log(f"  {tag} {kind}: greedy {whole[0].argmax(-1).tolist()} (f32 "
-            f"{truth[0].argmax(-1).tolist()}), parted from one process at "
-            f"{parted} rows")
+        assert torch.isfinite(whole[0]).all(), (tag, kind)
+        greedy = whole[0].argmax(-1)
+        rows = b // mesh[0]
+        for r, res in enumerate(got):
+            i = R.coordinates(desc, r)["data"]
+            step = 0 if kind == "prefill" else 1
+            assert torch.equal(res["greedy"][:, step],
+                               greedy[i * rows:(i + 1) * rows].int()), (
+                tag, r, kind)
+        if anchored:
+            parted = _greedy(torch, f"{tag} {kind}", whole[0], want[0])
+            log(f"  {tag} {kind}: greedy {greedy.tolist()} (f32 "
+                f"{truth[0].argmax(-1).tolist()}), parted from one process "
+                f"at {parted} rows")
+        else:
+            parted = None
+            log(f"  {tag} {kind}: the blocks put together are finite, the "
+                f"blocks the ranks share bitwise equal; greedy "
+                f"{greedy.tolist()} on every rank")
         if "trace" in got[0][kind]:
             tr = got[0][kind]["trace"]
             rest = tr["device_ms"] - tr["nccl_ms"]
@@ -2405,45 +2565,115 @@ def _tp_run(torch, dev, arch, mesh, backend) -> dict:
                 f"{rest / tr['wall_ms']:.3f}")
             for ms, n, key in tr["top"]:
                 log(f"    {ms:9.3f} ms {n:5d}x  {key}")
-        out[kind] = {"one_process_s": one[kind]["s"],
-                     "rank_s": [res[kind]["s"] for res in got],
-                     "collectives": got[0][kind]["collectives"],
-                     "launches": {wrapper: got[0][kind]["launches"][wrapper]},
-                     "parted": parted}
+        out.setdefault(kind, {}).update(
+            one_process_s=one[kind]["s"] if anchored else None,
+            rank_s=[res[kind]["s"] for res in got],
+            collectives=got[0][kind]["collectives"],
+            launches={k: got[0][kind]["launches"][k] for k in kernels},
+            parted=parted, routing_parted=routed if moe else None)
+    return out
+
+
+def _routing_parted(torch, desc, got, one, kind) -> list:
+    """For each rank of ``got``, a count a batch row of its block: the
+    tokens that it sent to other experts than one process (``one``) did,
+    in step ``kind`` and the steps before it (a decode step reads the
+    prefill's cache), over every MoE layer; zeros without MoE layers."""
+    from repro_torch.launch import ranks as R
+    out = []
+    for r, res in enumerate(got):
+        rows = res[kind]["out"][0].shape[0]
+        d = R.coordinates(desc, r)["data"]
+        n = torch.zeros(rows, dtype=torch.int64)
+        for k in ("prefill",) if kind == "prefill" else ("prefill", kind):
+            if "routes" in res[k]:
+                want = one[k]["routes"][:, d * rows:(d + 1) * rows]
+                n += (res[k]["routes"] != want).any(-1).sum(dim=(0, 2))
+        out.append(n.tolist())
+    return out
+
+
+def _rows_of(torch, tree, rows, dim) -> list:
+    """The tensors of ``tree`` (in ``flatten``'s order) at the batch rows
+    ``rows`` of their dimension ``dim`` (the logits' 0, the caches' 1,
+    after the layers), a 1-D tensor (the caches' "len") of its one."""
+    from repro_torch.models.params import flatten
+    idx = torch.tensor(rows)
+    return [t.index_select(0 if t.dim() == 1 else dim, idx)
+            for t in flatten(tree) if t is not None]
+
+
+def _tp_f32(torch, cfg, desc, rules, specs, got, f32, tag) -> dict:
+    """The ranks of an f32 plan held to the f32 process of the same plan:
+    their blocks put together (blocks that ranks share bitwise equal),
+    each floating tensor of each step's logits and caches within
+    TP_F32_SCALE of its largest magnitude, greedy tokens equal up to a
+    reported tie. Returns each step's largest difference over its
+    tensor's scale."""
+    from repro_torch.launch import ranks as R
+    from repro_torch.models.params import flatten
+    out = {}
+    for kind in ("prefill", "decode"):
+        want = f32[kind]["out"]
+        whole = R.gather_blocks(cfg, ("batch", "batch"), specs,
+                                [res[kind]["out"] for res in got], want,
+                                rules, desc)
+        worst = 0.0
+        for a, b in zip(flatten(whole), flatten(want)):
+            if a is None:
+                continue
+            assert a.shape == b.shape and a.dtype == b.dtype, (tag, kind)
+            if not a.is_floating_point():
+                assert torch.equal(a, b), (tag, kind)
+                continue
+            scale = max(b.abs().max().item(), 1.0)
+            worst = max(worst, (a - b).abs().max().item() / scale)
+        assert worst <= TP_F32_SCALE, (tag, kind, worst)
+        parted = _greedy(torch, f"{tag} {kind} f32", whole[0], want[0])
+        log(f"  {tag} {kind}, f32 ranks against the f32 process: largest "
+            f"difference {worst:.3e} of its tensor's scale (at most "
+            f"{TP_F32_SCALE}), greedy parted at {parted} rows")
+        out[kind] = worst
     return out
 
 
 def tensor_parallel_ranks(torch, dev, smi):
     """Phase 3t: the baseline rules (``tp_rules()``: Megatron-style tensor
     parallelism over 'model') run across ranks by the case builders'
-    prefill (TP_PREFILL, bf16, full size, seed 0) and a decode step over
+    prefill (TP_PREFILL, bf16, full width, seed 0) and a decode step over
     its caches (``launch/ranks.py``), each rank holding its block of every
-    leaf and cache. On one card: glm4-9b at 1 x 2, both ranks on the card
-    over gloo. Where 4 cards exist, over NCCL with a card a rank: glm4-9b
-    at 1 x 2 and 1 x 4 (its 2 kv heads gathered, the decode cache cut over
-    its sequence), llava-next-mistral-7b (its image features through the
-    projector) at 1 x 4 and 2 x 2. Held on every rank against one process
-    of the same plan (``_tp_run``): its logits and cache blocks as near
-    the f32 run as one process's bf16 blocks, greedy tokens equal up to a
-    reported bf16 tie, one flash a layer a prefill and one decode (flash
-    where the cache is cut over its sequence) a layer a decode step, and
-    the collective bytes of the closed form (``_tp_bytes``). Each step
-    timed warm; the decode step of TP_TRACED traced on every rank after
-    its timed run (``ranks.trace_step``), rank 0's printed."""
+    leaf and cache. On one card, both ranks on the card over gloo, at
+    1 x 2: glm4-9b and mamba2-370m at full size (the SSM block on each
+    rank's heads), mixtral-8x7b at 8 layers (MoE-TP) and jamba-v0.1-52b
+    at one 8-layer period (attention, SSM, MLP and MoE). Where 4 cards
+    exist, over NCCL with a card a rank: glm4-9b at 1 x 2 and 1 x 4 (its
+    2 kv heads gathered, the decode cache cut over its sequence),
+    mamba2-370m at 1 x 2 (phase 2's rank row reads its launches),
+    llava-next-mistral-7b (its image features through the projector) at
+    1 x 4 and 2 x 2, jamba's period at 1 x 4, and mixtral-8x7b and
+    jamba-v0.1-52b at full depth at 1 x 4, which no one process holds.
+    Each run held as ``_tp_run`` says; each step timed warm; the decode
+    step of TP_TRACED traced on every rank after its timed run
+    (``ranks.trace_step``), rank 0's printed. Returns each run's
+    seconds, counts and launches."""
     n_cards = torch.cuda.device_count()
     four = n_cards >= 4
     backend = "nccl" if four else "gloo"
     out = {"backend": backend, "cards": n_cards}
-    for arch, mesh in (TP_FOUR_CARDS if four else TP_ONE_CARD):
+    for arch, mesh, layers, anchored in (TP_FOUR_CARDS if four
+                                         else TP_ONE_CARD):
         t0 = time.perf_counter()
-        out[f"{arch} {mesh[0]}x{mesh[1]}"] = _tp_run(torch, dev, arch, mesh,
-                                                     backend)
-        log(f"  [3t] {arch} at {mesh[0]} x {mesh[1]} over {backend}: "
-            f"{time.perf_counter() - t0:.1f} s; on {smi}")
+        key = f"{arch} {mesh[0]}x{mesh[1]}" + (f" {layers}L" if layers
+                                               else "")
+        out[key] = _tp_run(torch, dev, arch, mesh, backend, layers, anchored)
+        log(f"  [3t] {key} over {backend}: {time.perf_counter() - t0:.1f} s; "
+            f"on {smi}")
         release(torch)
     if not four:
         log(f"  [3t] the four-card part (NCCL: glm4-9b at 1 x 2 and 1 x 4, "
-            f"llava-next-mistral-7b at 1 x 4 and 2 x 2) did not run: "
+            f"mamba2-370m at 1 x 2, llava-next-mistral-7b at 1 x 4 and 2 x "
+            f"2, jamba-v0.1-52b's period at 1 x 4, mixtral-8x7b and "
+            f"jamba-v0.1-52b at full depth at 1 x 4) did not run: "
             f"{n_cards} card(s), 4 needed")
     return out
 
@@ -2463,10 +2693,13 @@ def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
     its sums (f32) and its input's all-reduce; the global count (f32)
     over the data ranks. Under the expert-parallel rules a MoE layer's
     output gathered over the expert axis (forward, recompute) and its
-    input slice's gradient gathered, its aux sums (2 E, f32) over the
-    data ranks, forward and recompute. Per step: the data-parallel
-    reduction of every gradient (f32 over microbatches, bf16 over one)
-    and the clip's norm (f32) over the cut leaves."""
+    input slice's gradient gathered; under MoE-TP its expert buffers
+    (rows, E, C, d) all-reduced in the forward and in the recompute and
+    their gradient all-reduced in the backward (``tp_enter``); either
+    way its aux sums (2 E, f32) over the data ranks, forward and
+    recompute. Per step: the data-parallel reduction of every gradient
+    (f32 over microbatches, bf16 over one) and the clip's norm (f32)
+    over the cut leaves."""
     from repro_torch.models import moe as MOE
     d_ranks, m = mesh
     b, s = plan.train[:2]
@@ -2477,12 +2710,13 @@ def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
     if chunk and text > chunk:
         text = -(-text // chunk) * chunk
     ar = ag = rs = 0
+    n_moe = _n_layers(cfg, ffn="moe")
+    if n_moe and d_ranks > 1:
+        ar += n_moe * 2 * 2 * cfg.moe.n_experts * 4
     if plan.expert_parallel:
         E = cfg.moe.n_experts
         if m > 1:
             ag += layers * 3 * rows * E * MOE.capacity(cfg, s) * d * f
-        if d_ranks > 1:
-            ar += layers * 2 * 2 * E * 4
     elif m > 1:
         q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
         q_heads = cfg.n_heads % m == 0
@@ -2496,7 +2730,10 @@ def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
             if q_heads:
                 rs += layers * 2 * tokens * kv // m * f
         if cfg.d_ff % m == 0:
-            ar += layers * 2 * unit
+            ar += _n_layers(cfg, ffn="mlp") * 2 * unit
+            if n_moe:
+                ar += n_moe * 3 * rows * cfg.moe.n_experts * \
+                    MOE.capacity(cfg, s) * d * f
         if cfg.vocab % m == 0:
             ar += unit + rows * text * 3 * 4 + rows * text * d * f
     if d_ranks > 1:
@@ -2524,8 +2761,8 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
     gradient after the first step, so every gradient leaf is held); two
     flash forwards (remat's recompute) and one flash gradient a layer a
     microbatch; the collective bytes of ``_train_bytes``. Seconds a step
-    (the first warms the second), and the first step traced once more on
-    every rank (rank 0's printed). Returns the seconds, counts and
+    (the first warms the second), and one more step after the last traced
+    on every rank (rank 0's printed). Returns the seconds, counts and
     launches."""
     import shutil
 
@@ -2612,9 +2849,10 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
                              "loss": loss[0]})
     tr = got[0][0]["trace"]
     rest = tr["device_ms"] - tr["nccl_ms"]
-    log(f"  {tag}, step 1, rank 0 traced (torch.profiler, the step once "
-        f"more): wall {tr['wall_ms']:.3f} ms, device {tr['device_ms']:.3f} "
-        f"ms in {tr['launches']} kernel launches, of which NCCL's kernels "
+    log(f"  {tag}, rank 0 traced (torch.profiler, one more step after "
+        f"the last): wall {tr['wall_ms']:.3f} ms, device "
+        f"{tr['device_ms']:.3f} ms in {tr['launches']} kernel launches, "
+        f"of which NCCL's kernels "
         f"{tr['nccl_ms']:.3f} ms; the other kernels {rest:.3f} ms, busy "
         f"{rest / tr['wall_ms']:.3f}")
     for ms, n, key in tr["top"]:
@@ -2633,12 +2871,16 @@ def train_ranks(torch, dev, smi):
     (``_train_run``). On one card: smollm-135m at full size (30 layers),
     bf16, 7t's batch of 4 x 2048, at 2 x 1 (pure data parallel) and 1 x 2
     (q and K/V columns gathered, attention on every head on both ranks,
-    'ff' and 'vocab' cut), both ranks on the card over gloo. Where 4
-    cards exist, over NCCL with a card a rank: smollm-135m at 2 x 2,
-    glm4-9b at 1 x 4 (its 8 local q heads over one gathered kv head of
-    128, whose gradient is reduce-scattered) and mixtral-8x7b under the
-    expert-parallel rules at 2 x 2, each cut to the layers that one
-    process's AdamW step holds on 80 GB (TRAIN_FOUR_CARDS)."""
+    'ff' and 'vocab' cut), and mixtral-8x7b at full width and 1 layer
+    at 1 x 2 under MoE-TP (each expert's 'ff' cut over 'model'), both
+    ranks on the card over gloo. Where 4 cards exist, over NCCL with a
+    card a rank: smollm-135m at 2 x 2, glm4-9b at 1 x 4 (its 8 local q
+    heads over one gathered kv head of 128, whose gradient is
+    reduce-scattered) and mixtral-8x7b at 2 x 2 under the expert-parallel
+    rules and under MoE-TP, each cut to the layers that one process's
+    AdamW step holds on 80 GB (TRAIN_FOUR_CARDS)."""
+    from repro_torch.configs import get_config
+
     n_cards = torch.cuda.device_count()
     four = n_cards >= 4
     backend = "nccl" if four else "gloo"
@@ -2646,16 +2888,20 @@ def train_ranks(torch, dev, smi):
     for arch, mesh, layers, shape, ep in (TRAIN_FOUR_CARDS if four
                                           else TRAIN_ONE_CARD):
         t0 = time.perf_counter()
-        run = out[f"{arch} {mesh[0]}x{mesh[1]}"] = _train_run(
+        rules = ("expert-parallel" if ep else "MoE-TP") if \
+            get_config(arch).moe is not None else "TP"
+        run = out[f"{arch} {mesh[0]}x{mesh[1]} {rules}"] = _train_run(
             torch, dev, arch, mesh, backend, layers, shape, ep)
-        log(f"  [7r] {arch} at {mesh[0]} x {mesh[1]} over {backend}: "
+        log(f"  [7r] {arch} at {mesh[0]} x {mesh[1]} ({rules}) over "
+            f"{backend}: "
             f"{time.perf_counter() - t0:.1f} s (one process, bf16 and f32: "
             f"{run['one_process_s']:.1f} s; the ranks, started to joined: "
             f"{run['ranks_s']:.1f} s); on {smi}")
         release(torch)
     if not four:
         log(f"  [7r] the four-card part (NCCL: smollm-135m at 2 x 2, "
-            f"glm4-9b at 1 x 4, mixtral-8x7b at 2 x 2) did not run: "
+            f"glm4-9b at 1 x 4, mixtral-8x7b at 2 x 2 expert-parallel and "
+            f"MoE-TP) did not run: "
             f"{n_cards} card(s), 4 needed")
     return out
 
@@ -3441,6 +3687,7 @@ def main() -> int:
         graph_counts = graph_parity(torch, dev)
         log(f"[3c] {time.perf_counter() - t0:.1f} s")
     new_s = {}
+    ranked_tp = None
     if "3s" in phases:
         log("[3s] the dry-run's case builders on the card: bf16, seed 0, "
             "under tp_rules of the 1x1 local mesh, bitwise against the "
@@ -3469,7 +3716,7 @@ def main() -> int:
             f"the case builders' prefill {TP_PREFILL[0]} x {TP_PREFILL[1]} "
             f"and a decode step, full size, bf16, against one process")
         t0 = time.perf_counter()
-        tensor_parallel_ranks(torch, dev, smi)
+        ranked_tp = tensor_parallel_ranks(torch, dev, smi)
         new_s["3t"] = time.perf_counter() - t0
         log(f"[3t] {new_s['3t']:.1f} s")
 
@@ -3804,6 +4051,14 @@ def main() -> int:
             launches=run["counts"][wname] if run else 0, launches_in=where,
             **{k: r.get(k) for k in keys},
             cases={c: {k: v.get(k) for k in keys} for c, v in cases.items()}))
+    # ssd_scan at a rank's heads under tensor parallelism (mamba2-370m at
+    # 1 x 2: H 16): its launches in rank 0's prefill in phase 3t
+    r = kernels.get("ssd_scan", {}).get("rank", {})
+    run = (ranked_tp or {}).get("mamba2-370m 1x2")
+    rows.append(dict(
+        name="ssd_scan_rank_h16", route="cuda", **KERNEL_INFO["ssd_scan"],
+        launches=run["prefill"]["launches"]["ssd_scan"] if run else 0,
+        launches_in="3t", **{k: r.get(k) for k in keys}))
     if phases >= set(ALL_PHASES):
         for row in rows:
             assert row["launches"] > 0, row

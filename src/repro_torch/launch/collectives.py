@@ -151,7 +151,9 @@ def all_reduce(x: torch.Tensor, mesh, axis,
     import torch.distributed as dist
     if _size(mesh, axis) == 1:
         return x
-    out = x.clone()
+    # NCCL takes only contiguous tensors (an einsum's output may be a
+    # permuted view, and ``clone`` keeps its strides)
+    out = x.clone(memory_format=torch.contiguous_format)
     if not _meta(x):
         dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
                                  "max": dist.ReduceOp.MAX}[op],

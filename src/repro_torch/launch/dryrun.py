@@ -22,11 +22,13 @@ Per case, records:
     tensor-parallel path issues its collectives through
     ``launch/collectives.py``, which count the result bytes by kind and
     move nothing there, as ``hlo.py`` reads them off the compiled
-    program), over NVLink's datasheet rate. Counted for the prefill,
-    decode and train steps of the attention decoders under the baseline
-    rules (a train step's: its microbatches' TP collectives, forward,
-    remat's recompute and backward, and the data-parallel reduction);
-    every other case writes null with its reason (``collective_reason``).
+    program), over NVLink's datasheet rate. Counted under the baseline
+    rules for the prefill and decode steps of every decoder, MoE-TP and
+    the SSM block across ranks among them, and for the train steps of the
+    decoders without an SSM block (a train step's: its microbatches' TP
+    collectives, forward, remat's recompute and backward, and the
+    data-parallel reduction); every other case writes null with its
+    reason (``collective_reason``).
     Peak bytes have no counterpart of XLA's memory analysis: null.
 
 Usage:
@@ -72,26 +74,28 @@ PEAK_REASON = "no counterpart of XLA's memory analysis in the port"
 
 def collective_reason(cfg, kind: str, rules) -> str | None:
     """Why the collective term of a case is not counted, or None where it
-    is: the prefill, decode and train steps of an attention decoder under
-    the baseline rules, the one path whose collectives run across ranks
-    on the meta device (tensor parallelism, ``partitioning.
-    TensorParallel``, and the train step's data-parallel reduction)."""
-    todo = "is not ported (ROADMAP.md Queue 1)"
+    is: under the baseline rules, the prefill and decode steps of every
+    decoder (attention, MoE-TP and the SSM block across ranks,
+    ``partitioning.TensorParallel``) and the train steps of the decoders
+    without an SSM block (the TP transposes and the data-parallel
+    reduction), the paths whose collectives run across ranks on the meta
+    device."""
+    todo = "is not ported (ROADMAP.md Queue 1"
     if rules.rules.get("embed") is not None:
         what = "training" if kind == "train" else "gathers of the dense leaves"
-        return f"the fsdp rules' ZeRO-3 {what} {todo}"
+        return f"the fsdp rules' ZeRO-3 {what} {todo} item 4.3)"
     if rules.rules.get("expert") is not None:
         return ("the expert-parallel rules' branch runs across live ranks "
                 "only (launch/ranks.py): its counting on the meta device "
-                f"{todo}")
+                f"{todo})")
     if rules.rules.get("kv_seq") is not None:
-        return f"decode_kv='seq' under tensor parallelism {todo}"
+        return f"decode_kv='seq' under tensor parallelism {todo} item 4.2)"
     if cfg.encoder is not None:
-        return f"the encoder-decoder (whisper) under tensor parallelism {todo}"
-    if any(sp.mixer == "ssm" for sp in cfg.pattern):
-        return f"the SSM block under tensor parallelism {todo}"
-    if any(sp.ffn == "moe" for sp in cfg.pattern):
-        return f"MoE-TP (each expert's ff over 'model') across ranks {todo}"
+        return (f"the encoder-decoder (whisper) under tensor parallelism "
+                f"{todo} item 4.1)")
+    if kind == "train" and any(sp.mixer == "ssm" for sp in cfg.pattern):
+        return (f"training the SSM block under tensor parallelism {todo} "
+                f"item 5, with ssd_scan's gradient on the card)")
     return None
 
 
@@ -308,8 +312,9 @@ def main():
         "analytic roofline terms at H100 SXM constants "
         f"({CARD}: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
         f"{HBM_BW / 1e12:.2f} TB/s), and the collective term of the "
-        f"dense decoders' prefill, decode and train steps under the "
-        f"baseline rules at NVLink's {NVLINK_BW / 1e9:.0f} GB/s.")
+        f"decoders' prefill and decode steps and of their train steps "
+        f"but the SSM block's under the baseline rules at NVLink's "
+        f"{NVLINK_BW / 1e9:.0f} GB/s.")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")

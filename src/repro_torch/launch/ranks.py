@@ -8,8 +8,10 @@ How a rank holds a ``launch/specs.build_case`` case with a
   ``partitioning.tensor_parallel``) every parameter, cache and output
   is cut as its spec says after the divisibility rule
   (``partitioning.placement``, the dry-run's ``sanitize``): the bytes a
-  rank holds are the dry-run's per-device bytes. A dense cache cut over
-  its sequence must have the axis divide it (``rank_caches``);
+  rank holds are the dry-run's per-device bytes: each expert's 'ff'
+  under MoE-TP, an SSM layer's state over its heads and its conv tail
+  over its channels. A dense cache cut over its sequence must have the
+  axis divide it (``rank_caches``);
 * under ``tp_rules(expert_parallel=True, ...)`` the batch tensors
   (tokens, lengths, caches, images, frames) are cut over the batch axes
   only: a rank holds its rows, the same rows on every rank of one
@@ -39,10 +41,10 @@ process: the reference the ranks are held to.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
-import os
 import time
 import traceback
 from pathlib import Path
@@ -309,7 +311,8 @@ class Plan:
     prefill of the prompt's first tokens, a suffix prefill of the rest
     over them (``prefix_len`` / ``pos_base``), then the decode steps.
     Parameters are drawn from seed ``SEED`` on the device, inputs from
-    ``SEED`` + 1 on the CPU."""
+    ``SEED`` + 1 on the CPU. ``layers`` cuts the config's depth in whole
+    periods of its pattern (jamba's 8 layers)."""
     arch: str
     reduced: bool = True
     layers: Optional[int] = None
@@ -335,9 +338,13 @@ class Plan:
     # kind is warm from the one before)
     warm: bool = False
     # on the card, run the first decode step once more on copies of the
-    # caches, and the first train step once more, under torch.profiler
-    # (``trace_step``), after the counted run
+    # caches after the counted run, and one more train step after the
+    # last, under torch.profiler (``trace_step``)
     trace: bool = False
+    # keep each serving step's routing: the experts of each token of each
+    # MoE layer, "routes" (layers, rows, length, k) int16, each token's k
+    # in ascending order (``moe.recording_routes``)
+    routes: bool = False
 
 
 def plan_config(plan: Plan) -> ModelConfig:
@@ -345,6 +352,10 @@ def plan_config(plan: Plan) -> ModelConfig:
     if plan.reduced:
         cfg = cfg.reduced()
     if plan.layers:
+        if plan.layers % len(cfg.pattern):
+            raise ValueError(
+                f"plan_config: {plan.layers} layers of {cfg.name}, not a "
+                f"multiple of its {len(cfg.pattern)}-layer period")
         cfg = dataclasses.replace(cfg, n_layers=plan.layers,
                                   name=f"{cfg.name}-{plan.layers}layer")
     if plan.heads:
@@ -374,7 +385,8 @@ def rank_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device, **kw) -> Dict[str, Any]:
     """This rank's block of ``make_caches(cfg, batch, max_len, **kw)``,
     cut as ``rank_block`` cuts a case's caches (by ``cache_pspecs``),
-    filled as a fresh cache is. Under tensor parallelism a dense cache
+    filled as a fresh cache is (an SSM state cut over its heads, a conv
+    tail over its channels). Under tensor parallelism a dense cache
     cut over its sequence must have the axis divide it: a rank reads the
     place of its slots from its share of the sequence."""
     layout = kw.get("layout", "dense")
@@ -411,7 +423,8 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
     block, the caches made as this rank's block. Per step: its outputs,
     the kernel launches and the collectives (counts set to 0 just before
     the step, read just after), and its seconds (after a warm-up on
-    copies where ``plan.warm``); the first decode step under "decode",
+    copies where ``plan.warm``), and where ``plan.routes`` a serving
+    step's routing ("routes"); the first decode step under "decode",
     the later ones in the list "more"; "greedy" (b_rows, steps): the
     argmax of each step's logits over the whole vocabulary (gathered
     after the step where a rank holds a block of it); "inputs": the whole
@@ -440,11 +453,14 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
             torch.cuda.synchronize(device)
         ops.reset_launch_counts()
         collectives.reset()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        secs = time.perf_counter() - t0
+        record = plan.routes and kind != "train"
+        with (MOE.recording_routes() if record else
+              contextlib.nullcontext()) as routes:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            secs = time.perf_counter() - t0
         kept = out
         if plan.digest:
             kept = ((out[0], digest(out[1])) if kind != "train" else
@@ -452,12 +468,14 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
         rec = dict(out=kept, s=secs, launches=ops.launch_counts(),
                    collectives=collectives.collective_bytes(),
                    calls=collectives.collective_calls())
+        if routes:
+            rec["routes"] = torch.stack(
+                [e.sort(-1).values for e in routes]).to(torch.int16)
         if kind in res:
             res["more" if kind == "decode" else f"{kind}_more"].append(rec)
         else:
             res[kind] = rec
-            if plan.trace and kind in ("decode", "train") and \
-                    device.type == "cuda":
+            if plan.trace and kind == "decode" and device.type == "cuda":
                 rec["trace"] = trace_step(fn, [
                     clone_caches(a) if i == at else a
                     for i, a in enumerate(args)], device)
@@ -560,6 +578,11 @@ def drive(cfg: ModelConfig, plan: Plan, params, rules: ShardingRules,
             batch = cut((case.in_specs[2],), (
                 {k: to(t) for k, t in batch.items()},), "micro")[0]
             params, state, _ = step("train", case.fn, (params, state, batch))
+        if plan.trace and device.type == "cuda":
+            # once the steps are done, so that only the last step's new
+            # parameters and state are held beside the traced step's
+            res["train"]["trace"] = trace_step(case.fn, [params, state,
+                                                         batch], device)
     res["greedy"] = (torch.stack(res["greedy"], dim=1) if res["greedy"]
                      else None)
     return res
@@ -698,7 +721,9 @@ def _rank_main(rank: int, world: int, run_dir: str, backend: str,
     ``run_dir/jobs.pt``, save the results to ``run_dir/rank<r>.pt``."""
     run = Path(run_dir)
     if device == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the host's cores, and often with other work: one
+        # intra-op thread a rank keeps them from oversubscribing it
+        torch.set_num_threads(1)
     try:
         dev = distributed.init_process_group(
             backend, rank, world, f"file://{run / 'store'}", device)

@@ -151,7 +151,8 @@ def cross_attention_block(p, x, positions, enc_kv, cfg: ModelConfig):
     Non-causal, so flash takes every query, the single decode token too."""
     refuse_cut("cross_attention_block",
                lambda: attn_spec(cfg, cross=True),
-               "the encoder-decoder (whisper) under tensor parallelism")
+               "the encoder-decoder (whisper) under tensor parallelism "
+               "(item 4.1)")
     k, v, enc_pos = enc_kv
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
     q = _split_heads(h @ p["xwq"], cfg.n_heads, cfg.head_dim)

@@ -18,9 +18,16 @@ order: no atomics, so a replay is bitwise equal to the eager step.
 The reference's three sharding modes (see partitioning.tp_rules):
 
 * MoE-TP and the expert-sharded SPMD mode run the experts here in one
-  process, their constraints going through ``shard``; MoE-TP across
-  ranks (the baseline rules over a rank mesh, each expert's ``ff`` cut
-  over 'model') is not ported and raises ``NotImplementedError``;
+  process, their constraints going through ``shard``. MoE-TP across
+  ranks (the baseline rules over a rank mesh: ``partitioning.
+  tensor_parallel``) cuts each expert's ``ff`` over 'model', as
+  ``layers.mlp_block`` cuts the MLP's: routing, the aux loss and the
+  dispatch stay replicated on every rank of a model line, the expert
+  buffers enter the products with the rank's ``ff`` columns of ``wi``
+  and ``wg`` (``TensorParallel.enter``), and the partial products of
+  ``wo``'s rows are summed over 'model' in the activations' dtype on the
+  buffers (B, E, C, d), before the combine, where the reference's
+  program sums them (its ``out`` is constrained with ``d`` whole);
 * the explicit expert-parallel branch (``rules.mesh`` set and the expert
   axis split, the reference's ``shard_map``) runs across ranks over
   ``torch.distributed``: ``rules.mesh`` is then a ``launch/mesh.py``
@@ -34,8 +41,9 @@ The reference's three sharding modes (see partitioning.tp_rules):
 """
 from __future__ import annotations
 
+import contextlib
 from math import ceil
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,15 +51,33 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import collectives
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import moe_spec
 from repro_torch.models.partitioning import (current_rules, data_ranks,
-                                             refuse_cut, shard)
+                                             shard, tensor_parallel)
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
     moe = cfg.moe
     c = ceil(seq * moe.top_k / moe.n_experts * moe.capacity_factor)
     return max(1, min(c, seq * moe.top_k))
+
+
+# the router's choices of every ``moe_block`` call made inside
+# ``recording_routes()``, in call order; None outside it
+_ROUTES: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Collect the expert indices (B, S, k) that each ``moe_block`` call
+    routes its tokens to, one tensor a call in call order (the list
+    yielded): what tells two runs whose outputs part whether they sent a
+    token to other experts."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
 
 
 def route(p, h, cfg: ModelConfig):
@@ -87,8 +113,6 @@ def dispatch(eidx, n_experts: int):
 
 def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x + moe_out, aux_load_balance_loss f32 scalar)."""
-    refuse_cut("moe_block", lambda: moe_spec(cfg),
-               "MoE-TP across ranks (each expert's 'ff' over 'model')")
     moe = cfg.moe
     B, S, d = x.shape
     E, k = moe.n_experts, moe.top_k
@@ -97,6 +121,8 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     probs, gates, eidx = route(p, h, cfg)
+    if _ROUTES is not None:
+        _ROUTES.append(eidx)
 
     # ---- aux load-balance loss (Switch-style) ----
     top1 = torch.zeros((E,), dtype=torch.float32, device=x.device)
@@ -140,11 +166,18 @@ def moe_block(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     if expert_parallel(rules, E):
         out = _expert_ffn_expert_parallel(p, ebuf, rules)
     else:
+        tp = tensor_parallel(rules)
+        cut = tp is not None and tp.cut("ff", cfg.d_ff)
         ebuf = shard(ebuf, "batch", "act_expert", None, None)
+        if cut:
+            ebuf = tp.enter(ebuf)
         up = torch.einsum("becd,edf->becf", ebuf, p["wi"])
         gate = torch.einsum("becd,edf->becf", ebuf, p["wg"])
         act = shard(F.silu(gate) * up, "batch", "act_expert", None, "act_ff")
         out = torch.einsum("becf,efd->becd", act, p["wo"])
+        if cut:
+            # this rank's 'ff' rows of wo: the partial products summed
+            out = collectives.tp_all_reduce(out, tp.mesh, tp.axis)
         out = shard(out, "batch", "act_expert", None, None)
 
     # ---- combine: each selection, in token order (t * k + j), reads its

@@ -16,8 +16,9 @@ its mesh axes do not divide the dim (the dry-run's ``sanitize``).
 ``shard`` hands the placement it computes to ``_constrain``, which stays
 an annotation: it returns the tensor as it is, in one process and on a
 rank alike. Across ranks the placement is carried out where it changes
-what a rank computes, at the shard points of the dense path, by
-``TensorParallel`` (``tensor_parallel()`` gives this rank's, under the
+what a rank computes, at the shard points of the attention, MLP, MoE
+and SSM blocks, by ``TensorParallel`` (``tensor_parallel()`` gives this
+rank's, under the
 baseline rules with a rank mesh in ``rules.mesh``): a rank holds each
 leaf cut as its placement says, and the blocks call its helpers to
 gather columns that the activation wants whole, to all-reduce a
@@ -378,7 +379,7 @@ def tensor_parallel(rules: Optional[ShardingRules] = None
         raise NotImplementedError(
             "tensor parallelism across ranks runs the baseline rules with "
             "decode_kv='heads'; decode_kv='seq' (the paged pool cut over "
-            "its pages) is not ported")
+            "its pages) is not ported (ROADMAP.md Queue 1 item 4.2)")
     return TensorParallel(rules, mesh, axis, ways, mesh.coordinate(axis))
 
 

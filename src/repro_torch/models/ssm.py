@@ -6,6 +6,23 @@ plain version ``kernels/ssd_scan/ref.py`` on the CPU); the single-token
 decode update is plain tensor code, as in the reference. Where the
 reference returns a new cache, ``ssm_block`` writes the state and conv
 tail views it is given in place.
+
+Under tensor parallelism across ranks (``partitioning.tensor_parallel``:
+the baseline rules cut 'inner' and the heads over 'model') a rank holds
+its contiguous block of the fused projection ``w_in``'s columns, of the
+conv's channels and of the conv tail cache, which straddle the z / x /
+B / C / dt boundaries, and its heads of ``a_log``, ``d_skip``,
+``dt_bias``, the state cache, ``out_norm`` and ``w_out``'s rows. The
+block runs on the rank's heads: the fused activation, the conv's
+weights and its tail are gathered whole over the axis, the conv runs
+whole, the scan (or the decode update) takes the rank's heads of x, dt
+and z and all of B and C, ``out_norm``'s mean square is the sum over
+the ranks of theirs (f32), ``w_out``'s row block is contracted and
+summed over the ranks, and the rank writes back its block of the conv
+tail and its heads of the state. It serves prefill and decode steps: a
+gradient under tensor parallelism raises (the SSM train step across
+ranks waits on ``ssd_scan``'s gradient on the card, ROADMAP.md Queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -16,9 +33,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
+from repro_torch.launch import collectives
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ssm_spec
-from repro_torch.models.partitioning import refuse_cut, shard
+from repro_torch.models.partitioning import refuse_cut, shard, tensor_parallel
 
 
 class SSMCache(NamedTuple):
@@ -84,6 +102,37 @@ def _softplus(x):
                                           device=x.device))
 
 
+def _heads_parallel(p, x, cfg: ModelConfig):
+    """This rank's ``TensorParallel`` where it cuts the block's heads, or
+    None where every leaf is whole on every rank. A cut of the block's
+    leaves that leaves its heads whole, and a gradient under tensor
+    parallelism, raise ``NotImplementedError``."""
+    tp = tensor_parallel()
+    if tp is None:
+        return None
+    if not tp.cut("heads", cfg.ssm.n_heads(cfg.d_model)):
+        refuse_cut("ssm_block", lambda: ssm_spec(cfg),
+                   "the SSM block with heads that the axis does not "
+                   "divide (item 4.1)")
+        return None
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in p.values())):
+        raise NotImplementedError(
+            "ssm_block: a gradient under tensor parallelism: the SSM block "
+            "serves prefill and decode steps across ranks; its train step "
+            "waits on ssd_scan's gradient on the card (ROADMAP.md Queue 1 "
+            "item 5)")
+    return tp
+
+
+def _gathered(tp, t, logical: str, dim: int):
+    """``t`` whole along the axis: gathered where its last dim (``dim``
+    whole, named ``logical``) is cut, else as it is."""
+    if not tp.cut(logical, dim):
+        return t
+    return collectives.all_gather(t, tp.mesh, tp.axis, dim=-1)
+
+
 def ssm_block(p, x, cfg: ModelConfig, *,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               positions=None):
@@ -94,35 +143,47 @@ def ssm_block(p, x, cfg: ModelConfig, *,
     positions: (B,S) with -1 for padding: padded steps get dt=0 so they
       leave the recurrent state untouched.
     x: (B,S,d). Returns (out, cache).
+    Across ranks ``p`` and ``cache`` are this rank's blocks (see the
+    module's docstring); H is then this rank's heads.
     """
-    refuse_cut("ssm_block", lambda: ssm_spec(cfg),
-               "the SSM block under tensor parallelism ('inner' over "
-               "'model')")
     ssm = cfg.ssm
     d = cfg.d_model
     inner = ssm.inner_dim(d)
     nh = ssm.n_heads(d)
     N = ssm.state_dim
+    P = ssm.head_dim
+    conv_dim = inner + 2 * N
     bsz, S = x.shape[:2]
+    tp = _heads_parallel(p, x, cfg)
+    h0, nh_loc = tp.block(nh) if tp is not None else (0, nh)
 
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     zxbcdt = h @ p["w_in"]                            # (B,S, 2*inner+2N+nh)
     zxbcdt = shard(zxbcdt, "batch", None, "act_inner")
-    z = zxbcdt[..., :inner]
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    tail = cache[1] if cache is not None else None
+    if tp is not None:
+        zxbcdt = _gathered(tp, zxbcdt, "inner", 2 * inner + 2 * N + nh)
+        conv_w, conv_b = (_gathered(tp, t, "inner", conv_dim)
+                          for t in (conv_w, conv_b))
+        if tail is not None:
+            tail = _gathered(tp, tail, "act_inner", conv_dim)
+    heads = slice(h0 * P, (h0 + nh_loc) * P)          # this rank's channels
+    z = zxbcdt[..., heads]
     xbc = zxbcdt[..., inner: 2 * inner + 2 * N]
-    dt = zxbcdt[..., 2 * inner + 2 * N:]              # (B,S,nh)
+    dt0 = 2 * inner + 2 * N + h0
+    dt = zxbcdt[..., dt0:dt0 + nh_loc]                # (B,S,H)
     dt = _softplus(dt.float() + p["dt_bias"].float())
     if positions is not None:
         dt = dt * (positions >= 0).float()[..., None]
 
-    a = -torch.exp(p["a_log"].float())                # (nh,)
+    a = -torch.exp(p["a_log"].float())                # (H,)
     dsk = p["d_skip"].float()
 
     decode = cache is not None and S == 1
-    tail = cache[1] if cache is not None else None
-    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], tail)
+    xbc, new_tail = _causal_conv(xbc, conv_w, conv_b, tail)
     xbc = F.silu(xbc)
-    xs = xbc[..., :inner].reshape(bsz, S, nh, ssm.head_dim)
+    xs = xbc[..., heads].reshape(bsz, S, nh_loc, P)
     bm = xbc[..., inner: inner + N]
     cm = xbc[..., inner + N:]
 
@@ -140,9 +201,21 @@ def ssm_block(p, x, cfg: ModelConfig, *,
                              init)
     if cache is not None:
         cache[0].copy_(new_state)
+        if tp is not None and tp.cut("act_inner", conv_dim):
+            start, n = tp.block(conv_dim)         # this rank's channels
+            new_tail = new_tail[..., start:start + n]
         cache[1].copy_(new_tail)
 
-    y = y.reshape(bsz, S, inner)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["out_norm"],
-                 cfg.norm_eps)
-    return x + shard(y @ p["w_out"], "batch", None, "act_embed"), cache
+    y = y.reshape(bsz, S, nh_loc * P)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+        return x + shard(y @ p["w_out"], "batch", None, "act_embed"), cache
+    # out_norm's mean square over the whole of 'inner': the ranks' sums
+    y32 = y.float()
+    ss = collectives.all_reduce(torch.sum(y32 * y32, dim=-1, keepdim=True),
+                                tp.mesh, tp.axis)
+    y = (y32 * torch.rsqrt(ss / inner + cfg.norm_eps)
+         * p["out_norm"].float()).to(y.dtype)
+    out = tp.contract(y, p["w_out"], "inner", inner)
+    return x + shard(out, "batch", None, "act_embed"), cache

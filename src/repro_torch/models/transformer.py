@@ -272,7 +272,7 @@ def run_encoder(params, cfg: ModelConfig, frames):
     positions (B, T) int32). Non-causal self-attention in every layer."""
     refuse_cut("run_encoder", lambda: {**attn_spec(cfg), **{
         "mlp " + k: sp for k, sp in mlp_spec(cfg).items()}},
-        "the encoder-decoder (whisper) under tensor parallelism")
+        "the encoder-decoder (whisper) under tensor parallelism (item 4.1)")
     enc = params["encoder"]
     x = frames.to(params["projector"].dtype) @ params["projector"]
     x = x + enc["pos_embed"][None, :x.shape[1]].to(x.dtype)

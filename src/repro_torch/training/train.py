@@ -27,8 +27,8 @@ from repro_torch.launch import collectives
 from repro_torch.models import partitioning
 from repro_torch.models.model import train_forward
 from repro_torch.models.params import (attn_spec, flatten, leaves,
-                                       map_tree, moe_spec, param_structure,
-                                       ssm_spec, unflatten)
+                                       map_tree, param_structure, ssm_spec,
+                                       unflatten)
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 
@@ -116,10 +116,10 @@ def _process_mesh(cfg: ModelConfig):
 
     Across ranks the step runs under the baseline rules (tensor
     parallelism over 'model', data parallelism over the batch axes) for
-    the dense decoders, and under the expert-parallel rules; it raises
-    where a part is not ported: fsdp's ZeRO-3 training across data ranks,
-    and MoE-TP, the SSM block and the encoder-decoder under tensor
-    parallelism."""
+    the dense decoders and for MoE-TP (each expert's 'ff' over 'model'),
+    and under the expert-parallel rules; it raises where a part is not
+    ported: fsdp's ZeRO-3 training across data ranks, and the SSM block
+    and the encoder-decoder under tensor parallelism."""
     rules = partitioning.current_rules()
     mesh = getattr(rules, "mesh", None)
     if mesh is None or not hasattr(mesh, "coordinate"):
@@ -129,18 +129,18 @@ def _process_mesh(cfg: ModelConfig):
             f"train_step: the fsdp rules split the batch "
             f"{rules.size('batch')} ways over {rules.rules.get('batch')}: "
             f"fsdp's ZeRO-3 training across data ranks is not ported "
-            f"(ROADMAP.md Queue 1)")
+            f"(ROADMAP.md Queue 1 item 4.3)")
     for what, present, specs in (
-            ("MoE-TP (each expert's 'ff' over 'model')",
-             any(s.ffn == "moe" for s in cfg.pattern), moe_spec),
-            ("the SSM block", any(s.mixer == "ssm" for s in cfg.pattern),
-             ssm_spec),
-            ("the encoder-decoder (whisper)", cfg.encoder is not None,
+            ("the SSM block under tensor parallelism (item 5, with "
+             "ssd_scan's gradient on the card)",
+             any(s.mixer == "ssm" for s in cfg.pattern), ssm_spec),
+            ("the encoder-decoder (whisper) under tensor parallelism (item "
+             "4.1)", cfg.encoder is not None,
              lambda c: attn_spec(c, cross=True))):
         if present:
             partitioning.refuse_cut(
                 "train_step", functools.partial(specs, cfg),
-                f"training {what} under tensor parallelism")
+                f"training {what}")
     return mesh
 
 

@@ -33,9 +33,10 @@ whose 'model' axis is 2 or 4; f32, reduced configs.
   required: GSPMD chooses its own collectives (and XLA's CPU program
   carries bf16 collectives in f32, so both sides are counted in f32
   here).
-* Refusals: ``moe_block``, ``ssm_block``, whisper's encoder and
-  cross-attention, and the train step of those blocks, raise
-  ``NotImplementedError`` under a rank mesh that would cut their leaves;
+* Refusals: whisper's encoder and cross-attention, and the train step
+  of whisper and of the SSM block, raise ``NotImplementedError`` under a
+  rank mesh that would cut their leaves (``moe_block`` and ``ssm_block``
+  run under it: ``tests/test_torch_tp_moe_ssm.py``);
   a gradient through the sequence-cut decode combine raises, while the
   other TP collectives carry their transposes (the train step across
   ranks: ``tests/test_torch_train_parallel.py``).
@@ -498,11 +499,13 @@ def test_reference_collectives_beside_the_port(runs, capsys):
 def test_dry_run_counts_the_dense_decoders_only():
     """The dry-run writes the collective term of a dense decoder's
     base-rules decode (glm4-9b: 2 kv heads over a 16-way axis, so q, k and
-    v gathered and the step combined across ranks), and null with its
-    reason under the fsdp rules and for a MoE config; the train cases of
-    the six dense decoders are counted under the baseline rules, single-
-    pod and multi-pod, and every other train case is null with a reason
-    that names what is missing."""
+    v gathered and the step combined across ranks) and of a MoE decoder's
+    (mixtral-8x7b: MoE-TP's expert buffers all-reduced), and null with
+    its reason under the fsdp rules; the train cases of the six dense
+    decoders are counted under the baseline rules, single-pod and
+    multi-pod, and every case still null has a reason that names what is
+    missing (``collective_reason``: whisper, the SSM block's training,
+    fsdp, the expert-parallel branch on meta, ``decode_kv='seq'``)."""
     res = dryrun.run_case("glm4-9b", "decode_32k", save=False)
     assert res["collective_reason"] is None
     coll = res["collective_bytes"]
@@ -515,18 +518,18 @@ def test_dry_run_counts_the_dense_decoders_only():
     assert null["roofline"]["collective_s"] is None
     assert "fsdp" in null["collective_reason"]
     moe = dryrun.run_case("mixtral-8x7b", "decode_32k", save=False)
-    assert moe["collective_bytes"] is None
-    assert "MoE-TP" in moe["collective_reason"]
+    assert moe["collective_reason"] is None
+    assert moe["collective_bytes"]["all-reduce"] > 0
     mesh = make_production_mesh()
     for arch, kind, kw, why in (
-            ("mamba2-370m", "prefill", {}, "SSM"),
+            ("whisper-base", "prefill", {}, "encoder-decoder"),
             ("whisper-base", "decode", {}, "encoder-decoder"),
             ("mixtral-8x7b", "prefill", {"expert_parallel": True},
              "expert-parallel"),
+            ("glm4-9b", "decode", {"decode_kv": "seq"}, "decode_kv='seq'"),
             ("smollm-135m", "train", {"fsdp": True}, "ZeRO-3 training"),
             ("mamba2-370m", "train", {}, "SSM"),
             ("whisper-base", "train", {}, "encoder-decoder"),
-            ("mixtral-8x7b", "train", {}, "MoE-TP"),
             ("jamba-v0.1-52b", "train", {}, "SSM"),
             ("llama4-scout-17b-a16e", "train", {"expert_parallel": True},
              "expert-parallel")):
@@ -651,21 +654,21 @@ def _layer(params, part):
 
 
 def test_moe_ssm_and_whisper_refuse_tensor_parallelism():
+    """Whisper's encoder and cross-attention still refuse tensor
+    parallelism across ranks (ROADMAP Queue 1 item 4.1); ``moe_block``
+    (MoE-TP) and ``ssm_block`` (the Mamba2 block on a rank's heads) now
+    run under the same rank mesh on a rank's blocks (on ``meta`` here:
+    their collectives count and move nothing; against one process:
+    ``tests/test_torch_tp_moe_ssm.py``)."""
     x = torch.zeros((1, 4, 256))
     pos = torch.arange(4, dtype=torch.int32)[None]
-    moe_cfg = get_config("mixtral-8x7b").reduced()
-    moe_p = _layer(init_params(moe_cfg, device="cpu"), "moe")
-    ssm_cfg = get_config("mamba2-370m").reduced()
-    ssm_p = _layer(init_params(ssm_cfg, device="cpu"), "ssm")
     w_cfg = get_config("whisper-base").reduced()
     w_params = init_params(w_cfg, device="cpu")
     w_p = _layer(w_params, "attn")
     frames = torch.zeros((1, w_cfg.encoder.n_ctx, w_cfg.frontend.feature_dim))
     enc_kv = L.compute_cross_kv(w_p, torch.zeros((1, 8, w_cfg.d_model)),
                                 pos.repeat(1, 2), w_cfg)
-    calls = [("moe_block", lambda: MOE.moe_block(moe_p, x, moe_cfg)),
-             ("ssm_block", lambda: SSM.ssm_block(ssm_p, x, ssm_cfg)),
-             ("run_encoder", lambda: T.run_encoder(w_params, w_cfg, frames)),
+    calls = [("run_encoder", lambda: T.run_encoder(w_params, w_cfg, frames)),
              ("cross_attention_block", lambda: L.cross_attention_block(
                  w_p, torch.zeros((1, 4, w_cfg.d_model)), pos, enc_kv,
                  w_cfg))]
@@ -678,6 +681,22 @@ def test_moe_ssm_and_whisper_refuse_tensor_parallelism():
         with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
                                                 match=name):
             call()
+    rules = _tp()
+    coords = R.coordinates(MeshDesc((1, 2), AXES), 0)
+    for arch, part, block in (("mixtral-8x7b", "moe", MOE.moe_block),
+                              ("mamba2-370m", "ssm", SSM.ssm_block)):
+        cfg = get_config(arch).reduced()
+        whole = _layer(init_params(cfg, device="cpu"), part)
+        block(whole, x, cfg)
+        p = _layer(R.rank_block(cfg, ("params",), (None,), (abstract_params(
+            cfg, torch.float32),), rules, coords)[0], part)
+        assert any(p[k].shape != whole[k].shape for k in p), arch
+        xm = torch.empty(x.shape, device="meta")
+        collectives.reset()
+        with PT.use_rules(rules):
+            y = block(p, xm, cfg)[0]
+        assert y.shape == x.shape and collectives.collective_bytes(), arch
+    collectives.reset()
     # under the expert-parallel rules moe_block takes its own branch
     assert PT.tensor_parallel(PT.tp_rules(
         expert_parallel=True, axis_sizes={"data": 1, "model": 2},
@@ -685,21 +704,22 @@ def test_moe_ssm_and_whisper_refuse_tensor_parallelism():
 
 
 def test_train_step_refuses_tensor_parallelism():
-    """The train step runs the dense decoders under tensor parallelism
-    (``tests/test_torch_train_parallel.py``); MoE-TP, the SSM block and
-    the encoder-decoder it refuses before any work, each naming what is
-    not ported; under the expert-parallel rules a MoE config runs."""
-    for arch, what in (("mixtral-8x7b", "MoE-TP"),
-                       ("mamba2-370m", "SSM block"),
-                       ("jamba-v0.1-52b", "MoE-TP"),
-                       ("whisper-base", "encoder-decoder")):
+    """The train step runs the dense decoders and MoE-TP under tensor
+    parallelism (``tests/test_torch_train_parallel.py``,
+    ``tests/test_torch_tp_moe_ssm.py``); the SSM block (mamba2, jamba)
+    and the encoder-decoder it refuses before any work, each naming what
+    is not ported and its ROADMAP item."""
+    for arch, what in (("mamba2-370m", "SSM block.*item 5"),
+                       ("jamba-v0.1-52b", "SSM block.*item 5"),
+                       ("whisper-base", "encoder-decoder.*item 4.1")):
         step = make_train_step(get_config(arch).reduced(), AdamW())
         with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
                                                 match=what):
             step(None, None, None)
-    step = make_train_step(get_config(ARCH).reduced(), AdamW())
-    with PT.use_rules(_tp()), pytest.raises(AttributeError):
-        step(None, None, None)   # past the refusals: no parameters given
+    for arch in (ARCH, "mixtral-8x7b"):
+        step = make_train_step(get_config(arch).reduced(), AdamW())
+        with PT.use_rules(_tp()), pytest.raises(AttributeError):
+            step(None, None, None)   # past the refusals: no parameters
 
 
 def test_gradient_through_a_tensor_parallel_collective_raises():

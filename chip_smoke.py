@@ -33,7 +33,12 @@ Phases (every failure raises and ends the run with a non-zero code):
      window of 256; padded rows), bf16 and f32, two calls bitwise equal,
      timed with the backward of SDPA as its yardstick; each flash
      correctness case also asks the forward for its log-sum-exp, held
-     against the plain version's; at glm4-9b's shapes (32 q heads over 2
+     against the plain version's; the SSD scan's gradient kernel
+     (ssd_scan_bwd), fed the forward kernel's states, against the plain
+     version of its arithmetic at mamba2-370m's training shape (B 4 x
+     2048, H 32 and a rank's 16) and two small cases (an initial state, a
+     final-state gradient, a ragged chunk, P 96, N 16), bf16 and (against
+     the plain version run in f64) f32, two calls bitwise equal, timed; at glm4-9b's shapes (32 q heads over 2
      kv heads of 128, a group of 16): flash at its 2560 prefill and a
      512-token chunk, and the decode pair in bf16, f32 and on fp8 K/V, a
      4096-slot window case, a row without keys, and MQA (32/1, a group of
@@ -179,19 +184,21 @@ Phases (every failure raises and ends the run with a non-zero code):
   4b. serve mamba2-370m, dense: EPDCluster at full width and depth (48
      layers) in bf16, max_len 2048, 4 text requests of 64-1900 tokens,
      through submit + run_until_done, then run_continuous;
-  7. training parity: smollm-135m at full width and 2 layers in f32, one
-     train step (batch 2 x 512) on the CPU (plain versions) and on the GPU
-     (flash and its gradient kernel): the loss, every gradient leaf (max
-     error beside max |g|) and the updated params; remat=True equals
-     remat=False on the card bitwise;
-  7t. training smollm-135m at full width and depth (30 layers) in bf16,
-     batch 4 x 2048, loss_chunk 512, remat, 20 steps of
-     synthetic_batches: the loss curve falls; ms a step, tokens/s, peak
-     memory; flash forward and backward launches (30 backward a step);
-     one more step traced with torch.profiler: the top device kernels,
-     the device time by launching op and by part of the step (cuBLAS,
-     flash forward, the three gradient kernels, PyTorch's own kernels),
-     each gradient kernel's share of the step; then a checkpoint saved,
+  7. training parity: smollm-135m and mamba2-370m at full width and 2
+     layers in f32, one train step (batch 2 x 512) on the CPU (plain
+     versions) and on the GPU (flash and its gradient kernel; ssd_scan
+     and ssd_scan_bwd): the loss, every gradient leaf (max error beside
+     max |g|) and the updated params; remat=True equals remat=False on
+     the card bitwise;
+  7t. training smollm-135m (30 layers) and mamba2-370m (48 layers) at
+     full width and depth in bf16, batch 4 x 2048, loss_chunk 512, remat,
+     20 steps of synthetic_batches: the loss curve falls; ms a step,
+     tokens/s, peak memory; the forward kernel's launches (twice a layer
+     a step, remat's recompute) and its gradient's (once); one more step
+     traced with torch.profiler: the top device kernels, the device time
+     by launching op and by part of the step (cuBLAS, the forward, each
+     gradient device kernel, PyTorch's own kernels), each gradient
+     kernel's share of the step; then, for smollm, a checkpoint saved,
      restored and one more step, bitwise equal to the step without the
      round trip;
   7r. the train step across ranks (``launch/ranks.py``; the case
@@ -200,17 +207,19 @@ Phases (every failure raises and ends the run with a non-zero code):
      smollm-135m at full size, bf16, 7t's batch of 4 x 2048, two steps
      at 2 x 1 (pure data parallel: the gradients all-reduced in one flat
      f32 buffer over the two microbatches) and at 1 x 2 (q and K/V
-     columns gathered, 'ff' and 'vocab' cut), and mixtral-8x7b at full
-     width, 1 layer, 2 x 1024 under MoE-TP at 1 x 2, both ranks on one
-     card over gloo; where 4 cards exist, over NCCL with a card a rank,
-     smollm-135m at 2 x 2, glm4-9b (2 layers) at 1 x 4 and mixtral-8x7b
-     (1 layer) at 2 x 2 under the expert-parallel rules and under
-     MoE-TP. Held on every
+     columns gathered, 'ff' and 'vocab' cut), mixtral-8x7b at full
+     width, 1 layer, 2 x 1024 under MoE-TP at 1 x 2, and mamba2-370m at
+     full width, 16 of 48 layers, at 1 x 2 (the SSM block's transposes,
+     ssd_scan_bwd on each rank's heads), both ranks on one card over
+     gloo; where 4 cards exist, over NCCL with a card a rank,
+     smollm-135m at 2 x 2, glm4-9b (2 layers) at 1 x 4, mixtral-8x7b (1
+     layer) at 2 x 2 under the expert-parallel rules and under MoE-TP,
+     and mamba2-370m at full size at 2 x 2. Held on every
      rank against one process of the same plan in bf16 and in f32: the
      loss of each step, bitwise equal across ranks; the digests of the
      rank's blocks of the new parameters, mu and nu no farther from the
-     f32 run's than one bf16 process's; flash's forward and gradient
-     launches; the collective bytes of their closed form
+     f32 run's than one bf16 process's; flash's and ssd_scan's forward
+     and gradient launches; the collective bytes of their closed form
      (``_train_bytes``); seconds a step against one process's, and one
      more step after the last traced on rank 0;
   6. numbers: wall-clock TTFT, TPOT and tokens/s of the serving phases,
@@ -271,6 +280,10 @@ KERNEL_INFO = {
     "flash_attention_bwd": dict(
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention/ref.py:43"),
+    # the same for the SSD scan: the reference trains through ssd_chunked
+    "ssd_scan_bwd": dict(
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/models/ssm.py:57"),
 }
 MAX_LEN = 3072
 IMAGE_TOKENS = 2880
@@ -359,15 +372,25 @@ TRAIN_ONE_CARD = (("smollm-135m", (2, 1), None, (TRAIN_BATCH, TRAIN_SEQ),
                    False),
                   ("smollm-135m", (1, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
                    False),
-                  ("mixtral-8x7b", (1, 2), 1, (2, 1024), False))
+                  ("mixtral-8x7b", (1, 2), 1, (2, 1024), False),
+                  # 16 of 48 layers: at full depth its gloo ranks took
+                  # 137 s, past the script's 900 s
+                  ("mamba2-370m", (1, 2), 16, (TRAIN_BATCH, TRAIN_SEQ),
+                   False))
 # one process, which the ranks are held to, keeps bf16 weights, their f32
 # gradient sum and AdamW's two f32 moments, old and new: about 92 GB for
-# glm4-9b at 8 layers and more for mixtral at 4, so 2 and 1 layers
+# glm4-9b at 8 layers and more for mixtral at 4, so 2 and 1 layers.
+# jamba-v0.1-52b's 8-layer period does not train at 1 x 4 on 80 GB cards:
+# a rank's 3.3 B parameters take about 73 GB in bf16 weights, gradients
+# and f32 moments, old and new, and AdamW's update ran out of memory at
+# 74.7 GiB allocated (an H100 80GB HBM3)
 TRAIN_FOUR_CARDS = (("smollm-135m", (2, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
                      False),
                     ("glm4-9b", (1, 4), 2, (2, 2048), False),
                     ("mixtral-8x7b", (2, 2), 1, (2, 1024), True),
-                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), False))
+                    ("mixtral-8x7b", (2, 2), 1, (2, 1024), False),
+                    ("mamba2-370m", (2, 2), None, (TRAIN_BATCH, TRAIN_SEQ),
+                     False))
 L2_BYTES = 50 * 2 ** 20  # H100 L2
 DEVICE_LAUNCHES = 60     # launches a device timing
 # the SSD scan's final state is f32 on both sides, from the same rounded
@@ -455,15 +478,20 @@ def device_ms(torch, fn, sets, n: int = DEVICE_LAUNCHES) -> float:
 
 def device_kernels(torch, fn) -> int:
     """Device kernels that one call of ``fn`` (after a warm-up call)
-    issues, as torch.profiler records them."""
-    from torch.profiler import ProfilerActivity, profile
+    issues: the kernel nodes of a CUDA graph that captures the call
+    (``graphs.node_census``). torch.profiler's records of one call, read
+    here before, once held 5 of ssd_scan_bwd's 7 kernels late in the
+    whole script (an H100 80GB HBM3), and 7 in every call alone."""
+    from repro_torch.serving.graphs import node_census
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = node_census(graph).kernel_nodes
+    del graph
+    release(torch)
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -1305,6 +1333,155 @@ def check_ssd(torch, dev):
     res["rank"] = dict(max_abs_err=max(rank_errs), **timed(H // 2))
     log_timing("ssd_scan at a rank's heads", res["rank"])
     return res
+
+
+# the rows of ssd_scan_bwd in phase 2: name -> (B, S, H, P, N, the
+# caller's chunk, an initial state and a nonzero final-state gradient);
+# the first is mamba2-370m's training shape in phase 7t, the second a
+# rank's heads at 1 x 2 in phase 7r, the last small ones hold both ends of
+# the reverse recurrence, a ragged last chunk of the kernel's (320 tokens
+# over its 256-token chunks in bf16), a head dim of two slices (96) and
+# the smallest state dim
+SSD_BWD_CASES = {
+    "mamba2 train": (TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 256, False),
+    "mamba2 rank at 1 x 2": (TRAIN_BATCH, TRAIN_SEQ, 16, 64, 128, 256, False),
+    "init + dfinal, ragged": (2, 320, 4, 96, 64, 320, True),
+    "init + dfinal, N16": (1, 192, 3, 32, 16, 64, True),
+}
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dinit")
+
+
+def check_ssd_bwd(torch, dev):
+    """ssd_scan_bwd against the plain version of its arithmetic
+    (``ref.ssd_chunked_bwd``, which recomputes the states at the caller's
+    chunk) on the card's tensors, at SSD_BWD_CASES in bf16 and f32, fed
+    the forward kernel's states before each of its chunks: each of the
+    seven gradients within TOL (max |plain| printed beside its error), two
+    calls bitwise equal; in f32 against the plain version run in f64 on
+    the same values (its f32 run's own distance from that printed). The two training shapes timed in bf16 (the first
+    in f32 too), with a bound of the bytes it must move (x, dy, dx, B, C,
+    their gradients, dt, ddt, the forward's states) and its products over
+    64-token sub-chunks, as ``check_ssd`` counts the forward's; no single
+    PyTorch call computes it (library_ms None). Returns the rows by
+    case."""
+    from repro_torch.kernels.ssd_scan import backward as SB
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_with_states
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(8642)
+
+    def inputs(case, dtype):
+        bsz, s, heads, P, N, chunk, ends = case
+        dt_ = getattr(torch, dtype)
+
+        def randn(shape, scale=1.0):
+            return scale * torch.randn(shape, generator=gen, device=dev)
+
+        x = randn((bsz, s, heads, P)).to(dt_)
+        dt = torch.nn.functional.softplus(randn((bsz, s, heads)))
+        a = -torch.exp(randn((heads,), 0.3))
+        b, c = (randn((bsz, s, N), 0.3).to(dt_) for _ in range(2))
+        d = torch.ones((heads,), device=dev)
+        init = randn((bsz, heads, P, N), 0.1) if ends else None
+        dy = randn((bsz, s, heads, P)).to(dt_)
+        dfinal = randn((bsz, heads, P, N), 0.1) if ends else None
+        prev = ssd_scan_with_states(x, dt, a, b, c, d, chunk, init)[2]
+        return x, dt, a, b, c, d, chunk, init, prev, dy, dfinal
+
+    def plain(x, dt, a, b, c, d, chunk, init, prev, dy, dfinal, f64=False):
+        """The plain version at the kernel's own chunk where it divides the
+        sequence: the same decomposition (in f32 a 320-token chunk's
+        reverse sums round 7e-4 away from f64 where 64-token chunks stay
+        within 1e-4). ``f64``: on the same values in f64, what an f32 row
+        is held to (the plain version's own f32 sums over 8192 tokens and
+        32 heads round farther than 1e-4 from it)."""
+        own = SK.plan(*x.shape, b.shape[-1], x.dtype).chunk
+        args = [x, dt, a, b, c, d, own if x.shape[1] % own == 0 else chunk,
+                init, None, dy, dfinal]
+        if f64:
+            args = [t.double() if isinstance(t, torch.Tensor) else t
+                    for t in args]
+        return ssd_chunked_bwd(*args)
+
+    rows = {}
+    for name, case in SSD_BWD_CASES.items():
+        bsz, s, heads, P, N, chunk, ends = case
+        errs = {}
+        for dtype in ("bfloat16", "float32"):
+            args = inputs(case, dtype)
+            got = SB.ssd_scan_bwd(*args)
+            again = SB.ssd_scan_bwd(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            want = plain(*args, f64=dtype == "float32")
+            drift = ""
+            if dtype == "float32":
+                own = plain(*args)
+                drift = "; the plain version in f32 against f64: " + ", ".join(
+                    f"{n} {(o.double() - w).abs().max().item():.3e}"
+                    for n, o, w in zip(SSD_GRADS, own, want))
+                del own
+            parts, bad = [], []
+            for g_name, g, w in zip(SSD_GRADS, got, want):
+                g, w = g.double(), w.double()
+                err = (g - w).abs().max().item()
+                ok = (torch.allclose(g, w, **TOL[dtype])
+                      and bool(torch.isfinite(g).all()))
+                parts.append(f"{g_name} {err:.3e} (max |plain| "
+                             f"{w.abs().max().item():.3e})"
+                             f"{'' if ok else ' FAIL'}")
+                if not ok:
+                    bad.append(g_name)
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+            log(f"  ssd_scan_bwd [{name}: B{bsz} S{s} H{heads} P{P} N{N}"
+                f"{', init + dfinal' if ends else ''}] {dtype}: max_abs_err "
+                f"{'; '.join(parts)} tol={TOL[dtype]}"
+                f"{' (against the plain version in f64)' if drift else ''}; "
+                f"two calls bitwise equal: {same}{drift}")
+            assert same and not bad, (name, dtype, bad)
+            del args, got, again, want
+            release(torch)
+        if name not in ("mamba2 train", "mamba2 rank at 1 x 2"):
+            continue
+        timed = ("bfloat16", "float32") if name == "mamba2 train" else (
+            "bfloat16",)
+        for dtype in timed:
+            def make():
+                return inputs(case, dtype), None
+            first = make()
+            x, prev = first[0][0], first[0][8]
+            el = x.element_size()
+            if dtype == "bfloat16" and name == "mamba2 train":
+                n_dev = device_kernels(torch,
+                                       lambda: SB.ssd_scan_bwd(*first[0]))
+                log(f"  ssd_scan_bwd: {n_dev} device kernels a call")
+                assert n_dev == SB.DEVICE_KERNELS, n_dev
+                rows["device_kernels"] = n_dev
+            # x, dy, dx; B, C, dB, dC; dt, ddt; the forward's states
+            nbytes = (el * (3 * x.numel() + 4 * bsz * s * N)
+                      + 4 * 2 * bsz * s * heads + prev.numel() * el)
+            sub = 64
+            pairs = bsz * sum(n * (n + 1) // 2 for n in [sub] * (s // sub)
+                              + ([s % sub] if s % sub else []))
+            # C.B^T, dy.x^T, the scores' transpose times dy, dC and dB
+            # from the head-summed weights; the state terms (S^T dy, G B,
+            # G^T xdt and each chunk's own state gradient) every token
+            flops = (2 * pairs * (3 * N + 2 * heads * P)
+                     + 2 * 4 * bsz * s * heads * P * N)
+            r = timing(torch, first, make, SB.ssd_scan_bwd, plain, None,
+                       nbytes, flops, plain_n=3,
+                       peak=PEAK_BF16 if dtype == "bfloat16" else PEAK_F32,
+                       shape=f"{name}: B{bsz} S{s} H{heads} P{P} N{N} "
+                             f"{'bf16' if dtype == 'bfloat16' else 'f32'}, "
+                             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+                             f"MB")
+            r["max_abs_err"] = errs[dtype]
+            log_timing(f"ssd_scan_bwd {name} {dtype}", r)
+            rows[name if dtype == "bfloat16" else f"{name} f32"] = r
+            del first
+            release(torch)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2697,9 +2874,14 @@ def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
     (rows, E, C, d) all-reduced in the forward and in the recompute and
     their gradient all-reduced in the backward (``tp_enter``); either
     way its aux sums (2 E, f32) over the data ranks, forward and
-    recompute. Per step: the data-parallel reduction of every gradient
-    (f32 over microbatches, bf16 over one) and the clip's norm (f32)
-    over the cut leaves."""
+    recompute. An SSM layer: its fused activation and conv weights
+    gathered in the forward and the recompute, their gradients
+    reduce-scattered; out_norm's f32 sums of squares (rows, seq) summed in
+    both and their gradient in the backward; w_out's partial products
+    summed (once where the layer ends the repeat) and its input's
+    gradient ("f"). Per step: the data-parallel reduction of every
+    gradient (f32 over microbatches, bf16 over one) and the clip's norm
+    (f32) over the cut leaves."""
     from repro_torch.models import moe as MOE
     d_ranks, m = mesh
     b, s = plan.train[:2]
@@ -2718,22 +2900,44 @@ def _train_bytes(cfg, plan, mesh, n_micro, chunk, held) -> dict:
         if m > 1:
             ag += layers * 3 * rows * E * MOE.capacity(cfg, s) * d * f
     elif m > 1:
+        # the collective that ends a repeat (past its last saved tensor)
+        # is not issued again by the recompute
+        last = cfg.pattern[-1]
+        ends = ("mlp" if last.ffn == "mlp" else
+                last.mixer if last.ffn == "none" else None)
+        n_attn = _n_layers(cfg, mixers=("attn", "swa"))
         q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
         q_heads = cfg.n_heads % m == 0
         unit = tokens * d * f
-        if q % m == 0:
-            ar += layers * 3 * unit
+        if n_attn and q % m == 0:
+            ar += n_attn * (2 if ends in ("attn", "swa") else 3) * unit
             if not q_heads:
-                ag += layers * 3 * tokens * q * f
-        if kv % m == 0 and cfg.n_kv_heads % m:
-            ag += layers * 2 * 2 * tokens * kv * f
+                ag += n_attn * 3 * tokens * q * f
+        if n_attn and kv % m == 0 and cfg.n_kv_heads % m:
+            ag += n_attn * 2 * 2 * tokens * kv * f
             if q_heads:
-                rs += layers * 2 * tokens * kv // m * f
-        if cfg.d_ff % m == 0:
-            ar += _n_layers(cfg, ffn="mlp") * 2 * unit
+                rs += n_attn * 2 * tokens * kv // m * f
+        if cfg.d_ff and cfg.d_ff % m == 0:
+            ar += _n_layers(cfg, ffn="mlp") * (2 if ends == "mlp" else 3) \
+                * unit
             if n_moe:
                 ar += n_moe * 3 * rows * cfg.moe.n_experts * \
                     MOE.capacity(cfg, s) * d * f
+        n_ssm = _n_layers(cfg, mixers=("ssm",))
+        if n_ssm:
+            # the fused activation and the conv's weights gathered (forward,
+            # recompute) and their gradients reduce-scattered; out_norm's
+            # f32 sums of squares and w_out's partial products summed, and
+            # in the backward the block input's and the sums' gradients
+            ssm = cfg.ssm
+            inner, N, W = ssm.inner_dim(d), ssm.state_dim, ssm.conv_width
+            conv = inner + 2 * N
+            gathered = tokens * (2 * inner + 2 * N + ssm.n_heads(d)) + \
+                W * conv + conv
+            ag += n_ssm * 2 * gathered * f
+            rs += n_ssm * gathered // m * f
+            ar += n_ssm * (2 * tokens * 4 + (1 if ends == "ssm" else 2) * unit
+                           + unit + tokens * 4)
         if cfg.vocab % m == 0:
             ar += unit + rows * text * 3 * 4 + rows * text * d * f
     if d_ranks > 1:
@@ -2759,8 +2963,9 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
     new parameters and AdamW moments no farther from the f32 run's than
     one bf16 process's (``_anchored``; mu is 0.1 times the clipped
     gradient after the first step, so every gradient leaf is held); two
-    flash forwards (remat's recompute) and one flash gradient a layer a
-    microbatch; the collective bytes of ``_train_bytes``. Seconds a step
+    forwards (remat's recompute) and one gradient a layer a microbatch of
+    flash (attention layers) and ssd_scan (SSM layers); the collective
+    bytes of ``_train_bytes``. Seconds a step
     (the first warms the second), and one more step after the last traced
     on every rank (rank 0's printed). Returns the seconds, counts and
     launches."""
@@ -2818,6 +3023,13 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
         cfg, ("params",), (None,), (abstract_params(cfg),), rules,
         R.coordinates(desc, 0))[0]))
     want_bytes = _train_bytes(cfg, plan, mesh, n_micro, chunk, held)
+    # a forward (and remat's recompute) and a gradient a layer a microbatch
+    n_attn = _n_layers(cfg, mixers=("attn", "swa"))
+    n_ssm = _n_layers(cfg, mixers=("ssm",))
+    want_launches = {"flash_attention": 2 * n_attn * n_micro,
+                     "flash_attention_bwd": n_attn * n_micro,
+                     "ssd_scan": 2 * n_ssm * n_micro,
+                     "ssd_scan_bwd": n_ssm * n_micro}
     out["steps"] = []
     for i, (w, t) in enumerate(zip(one, f32)):
         loss = [float(g[i]["out"][2]["loss"]) for g in got]
@@ -2831,8 +3043,8 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
             a = _anchored(torch, res[i]["out"][:2], w["blocks"][r],
                           t["blocks"][r])
             n = res[i]["launches"]
-            assert n["flash_attention"] == 2 * cfg.n_layers * n_micro and \
-                n["flash_attention_bwd"] == cfg.n_layers * n_micro, (tag, n)
+            assert all(n[k] == v for k, v in want_launches.items()), (
+                tag, n, want_launches)
             coll = res[i]["collectives"]
             assert coll == want_bytes, (tag, r, coll, want_bytes)
             log(f"    rank {r}: {res[i]['s']:.4f} s (one process "
@@ -2840,10 +3052,9 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
                 f"parameters, mu, nu: max |rank - one process| {a[0]:.3e}, "
                 f"outside the bf16 rule {a[1]} (one process against f32: "
                 f"{a[2]}), distance from f32 max / mean {a[3]:.3f} / "
-                f"{a[4]:.3f} of one process's; {n['flash_attention']} flash "
-                f"forward, {n['flash_attention_bwd']} flash_attention_bwd; "
-                f"collectives {coll} = closed form, over "
-                f"{sum(res[i]['calls'].values())} calls")
+                f"{a[4]:.3f} of one process's; launches "
+                f"{({k: n[k] for k in want_launches})}; collectives {coll} "
+                f"= closed form, over {sum(res[i]['calls'].values())} calls")
         out["steps"].append({"one_process_s": w["s"],
                              "rank_s": [g[i]["s"] for g in got],
                              "loss": loss[0]})
@@ -2858,8 +3069,7 @@ def _train_run(torch, dev, arch, mesh, backend, layers, shape,
     for ms, n, key in tr["top"]:
         log(f"    {ms:9.3f} ms {n:5d}x  {key}")
     out["collectives"] = want_bytes
-    out["launches"] = {k: got[0][0]["launches"][k]
-                       for k in ("flash_attention", "flash_attention_bwd")}
+    out["launches"] = {k: got[0][0]["launches"][k] for k in want_launches}
     return out
 
 
@@ -2871,14 +3081,16 @@ def train_ranks(torch, dev, smi):
     (``_train_run``). On one card: smollm-135m at full size (30 layers),
     bf16, 7t's batch of 4 x 2048, at 2 x 1 (pure data parallel) and 1 x 2
     (q and K/V columns gathered, attention on every head on both ranks,
-    'ff' and 'vocab' cut), and mixtral-8x7b at full width and 1 layer
-    at 1 x 2 under MoE-TP (each expert's 'ff' cut over 'model'), both
-    ranks on the card over gloo. Where 4 cards exist, over NCCL with a
-    card a rank: smollm-135m at 2 x 2, glm4-9b at 1 x 4 (its 8 local q
-    heads over one gathered kv head of 128, whose gradient is
-    reduce-scattered) and mixtral-8x7b at 2 x 2 under the expert-parallel
-    rules and under MoE-TP, each cut to the layers that one process's
-    AdamW step holds on 80 GB (TRAIN_FOUR_CARDS)."""
+    'ff' and 'vocab' cut), mixtral-8x7b at full width and 1 layer at
+    1 x 2 under MoE-TP (each expert's 'ff' cut over 'model') and
+    mamba2-370m at full width, 16 layers, at 1 x 2 (the SSM block on each
+    rank's heads, ssd_scan and its gradient kernel), both ranks on the
+    card over gloo. Where 4 cards exist, over NCCL with a card a rank:
+    smollm-135m at 2 x 2, glm4-9b at 1 x 4 (its 8 local q heads over one
+    gathered kv head of 128, whose gradient is reduce-scattered),
+    mixtral-8x7b at 2 x 2 under the expert-parallel rules and under
+    MoE-TP, and mamba2-370m at full size at 2 x 2, each cut to the layers
+    that one process's AdamW step holds on 80 GB (TRAIN_FOUR_CARDS)."""
     from repro_torch.configs import get_config
 
     n_cards = torch.cuda.device_count()
@@ -2901,7 +3113,7 @@ def train_ranks(torch, dev, smi):
     if not four:
         log(f"  [7r] the four-card part (NCCL: smollm-135m at 2 x 2, "
             f"glm4-9b at 1 x 4, mixtral-8x7b at 2 x 2 expert-parallel and "
-            f"MoE-TP) did not run: "
+            f"MoE-TP, mamba2-370m at 2 x 2) did not run: "
             f"{n_cards} card(s), 4 needed")
     return out
 
@@ -3357,12 +3569,26 @@ def moe_requests(cfg):
 # phases 7, 7t: training smollm-135m
 # ---------------------------------------------------------------------------
 
+# phases 7, 7t: each model with the kernels whose forward and gradient its
+# train step launches (one of each a layer without remat)
+TRAIN_MODELS = {"smollm-135m": ("flash_attention", "flash_attention_bwd"),
+                "mamba2-370m": ("ssd_scan", "ssd_scan_bwd")}
+
+
 def train_parity(torch, dev):
-    """One train step of smollm-135m at full width and 2 layers in f32,
-    on the CPU (plain versions) and on the card (flash and its gradient
-    kernel), from the same params and batch: the loss, every gradient
-    leaf (as the optimizer receives it) and the updated params agree;
-    on the card remat=True equals remat=False bitwise."""
+    """One train step of each TRAIN_MODELS model at full width and 2 layers
+    in f32, on the CPU (plain versions) and on the card (the forward
+    kernel and its gradient kernel), from the same params and batch: the
+    loss, every gradient leaf (as the optimizer receives it) and the
+    updated params agree; on the card remat=True equals remat=False
+    bitwise."""
+    for arch, (fwd, bwd) in TRAIN_MODELS.items():
+        log(f"  [7] {arch}")
+        _train_parity(torch, dev, arch, fwd, bwd)
+        release(torch)
+
+
+def _train_parity(torch, dev, arch, fwd, bwd):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.params import flatten, init_params, map_tree
@@ -3370,7 +3596,7 @@ def train_parity(torch, dev):
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train import make_train_step
 
-    base = get_config("smollm-135m")
+    base = get_config(arch)
     cfg = dataclasses.replace(base, n_layers=2, name=base.name + "-2layer")
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     batch = next(synthetic_batches(cfg, *PARITY_TRAIN, 1, seed=7,
@@ -3400,8 +3626,8 @@ def train_parity(torch, dev):
     p_rem, _, m_rem = make_train_step(cfg, opt, remat=True)(
         gp, opt.init(gp), gb)
     torch.cuda.synchronize()
-    assert counts["flash_attention"] == cfg.n_layers, counts
-    assert counts["flash_attention_bwd"] == cfg.n_layers, counts
+    assert counts[fwd] == cfg.n_layers, counts
+    assert counts[bwd] == cfg.n_layers, counts
     dl = abs(float(m_cpu["loss"]) - float(m_gpu["loss"]))
     log(f"  loss: CPU {float(m_cpu['loss']):.6f} ({cpu_s:.1f} s), GPU "
         f"{float(m_gpu['loss']):.6f}, |diff| {dl:.3e} (tol 1e-4); launches "
@@ -3442,22 +3668,63 @@ def train_parity(torch, dev):
 
 
 def train_full(torch, dev):
-    """smollm-135m at full width and depth in bf16: TRAIN_STEPS steps of
-    synthetic_batches (batch TRAIN_BATCH x seq TRAIN_SEQ, loss_chunk
-    TRAIN_CHUNK, remat=True), the launch counts set to 0 just before and
-    read just after; the loss falls; then a checkpoint saved and restored
-    and one more step equals, bitwise, the step without the round trip.
-    Returns the launch counts and the numbers."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.params import count_params, flatten, init_params
+    """Each TRAIN_MODELS model at full width and depth in bf16
+    (``_train_full``); smollm's run then saves a checkpoint, restores it
+    and takes one more step, bitwise equal to the step without the round
+    trip. Returns the numbers by arch."""
+    from repro_torch.models.params import flatten
     from repro_torch.training.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
+    out = {}
+    for arch, kernels in TRAIN_MODELS.items():
+        log(f"  [7t] {arch}")
+        res, keep = _train_full(torch, dev, arch, kernels,
+                                keep=arch == "smollm-135m")
+        out[arch] = res
+        if keep is None:
+            release(torch)
+            continue
+        cfg, step_fn, params, state, batch = keep
+        ckpt = ROOT / "build" / "chip_smoke_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, cfg, params, state, step=TRAIN_STEPS)
+        p_r, s_r, step = restore_checkpoint(ckpt, cfg, params, state)
+        io_s = time.perf_counter() - t0
+        shutil.rmtree(ckpt)
+        p_a, s_a, m_a = step_fn(params, state, batch)
+        p_b, s_b, m_b = step_fn(p_r, s_r, batch)
+        same = (step == TRAIN_STEPS and int(s_a.step) == int(s_b.step)
+                and float(m_a["loss"]) == float(m_b["loss"])
+                and all(torch.equal(a, b) for a, b in zip(
+                    flatten((p_a, s_a.mu, s_a.nu)),
+                    flatten((p_b, s_b.mu, s_b.nu)))))
+        log(f"  checkpoint at step {step} saved and restored in {io_s:.1f} "
+            f"s; the next step equals the step without the round trip, "
+            f"bitwise: {same}")
+        assert same
+        del keep, p_a, s_a, p_b, s_b, p_r, s_r
+        release(torch)
+    return out
+
+
+def _train_full(torch, dev, arch, kernels, keep):
+    """``arch`` at full width and depth in bf16: TRAIN_STEPS steps of
+    synthetic_batches (batch TRAIN_BATCH x seq TRAIN_SEQ, loss_chunk
+    TRAIN_CHUNK, remat=True), the launch counts set to 0 just before and
+    read just after; the loss falls; the forward kernel launched twice a
+    layer a step (the forward and remat's recompute), its gradient once;
+    then one more step traced. Returns the numbers, and with ``keep``
+    what a checkpoint round trip needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params, init_params
     from repro_torch.training.data import synthetic_batches
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train import make_train_step
 
-    cfg = get_config("smollm-135m")
+    fwd, bwd = kernels
+    cfg = get_config(arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev, dtype=torch.bfloat16)
     opt = AdamW(lr=1e-3, warmup_steps=5)
@@ -3488,34 +3755,18 @@ def train_full(torch, dev):
         f"step ms {[round(1e3 * t, 1) for t in times]} (median after the "
         f"first {1e3 * step_s:.1f}), {tokens / step_s:.0f} tokens/s; "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches {counts}: "
-        f"flash forward {counts['flash_attention']} (once in the forward "
-        f"and once in the recompute of each layer), backward "
-        f"{counts['flash_attention_bwd']}")
+        f"{fwd} {counts[fwd]} (once in the forward and once in the "
+        f"recompute of each layer), {bwd} {counts[bwd]}")
     assert all(map(math.isfinite, losses)) and last < first, losses
-    assert counts["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS
-    assert counts["flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS
-    traced = trace_step(torch, step_fn, params, state, batches[-1])
-
-    ckpt = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    t0 = time.perf_counter()
-    save_checkpoint(ckpt, cfg, params, state, step=TRAIN_STEPS)
-    p_r, s_r, step = restore_checkpoint(ckpt, cfg, params, state)
-    io_s = time.perf_counter() - t0
-    shutil.rmtree(ckpt)
-    p_a, s_a, m_a = step_fn(params, state, batches[-1])
-    p_b, s_b, m_b = step_fn(p_r, s_r, batches[-1])
-    same = (step == TRAIN_STEPS and int(s_a.step) == int(s_b.step)
-            and float(m_a["loss"]) == float(m_b["loss"])
-            and all(torch.equal(a, b) for a, b in zip(
-                flatten((p_a, s_a.mu, s_a.nu)),
-                flatten((p_b, s_b.mu, s_b.nu)))))
-    log(f"  checkpoint at step {step} saved and restored in {io_s:.1f} s; "
-        f"the next step equals the step without the round trip, bitwise: "
-        f"{same}")
-    assert same
-    return dict(counts=counts, losses=losses, step_ms=1e3 * step_s,
-                tokens_per_s=tokens / step_s, peak_bytes=peak, traced=traced)
+    assert counts[bwd] == cfg.n_layers * TRAIN_STEPS
+    assert counts[fwd] == 2 * cfg.n_layers * TRAIN_STEPS
+    traced = trace_step(torch, step_fn, params, state, batches[-1], bwd)
+    res = dict(counts=counts, losses=losses, step_ms=1e3 * step_s,
+               tokens_per_s=tokens / step_s, peak_bytes=peak, traced=traced,
+               layers=cfg.n_layers)
+    if not keep:
+        return res, None
+    return res, (cfg, step_fn, params, state, batches[-1])
 
 
 def kernel_class(key):
@@ -3534,12 +3785,12 @@ def kernel_class(key):
     return "other"
 
 
-def trace_step(torch, step_fn, params, state, batch):
+def trace_step(torch, step_fn, params, state, batch, bwd):
     """One more train step under torch.profiler, after the timed ones, its
     results dropped: its wall time (tracing included), the device time by
     kernel (the top ones), by the op that launched it, and by part of the
-    step, and each gradient kernel's share of the step. Returns the
-    numbers."""
+    step, and each device kernel of the gradient wrapper ``bwd``'s share
+    of the step. Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile_serve import (_device_us, report,
@@ -3568,7 +3819,7 @@ def trace_step(torch, step_fn, params, state, batch):
             f"time")
     grads = {}
     for e in kernels:
-        if wrapper_of_key(e.key) == "flash_attention_bwd":
+        if wrapper_of_key(e.key) == bwd:
             ms = _device_us(e) / 1e3
             m = re.search(r"(\w+<[^()]*>)\(", e.key)
             name = m.group(1) if m else e.key
@@ -3648,6 +3899,12 @@ def main() -> int:
         bwd_rows = check_flash_bwd(torch, dev)
         kernels["flash_attention_bwd"] = dict(bwd_rows["smollm causal"],
                                               cases=bwd_rows)
+        log("[2] ssd_scan_bwd vs the plain version of its arithmetic at "
+            "mamba2-370m's training shapes")
+        ssd_rows = check_ssd_bwd(torch, dev)
+        kernels["ssd_scan_bwd"] = dict(
+            ssd_rows["mamba2 train"], device_kernels=ssd_rows.pop(
+                "device_kernels"), cases=ssd_rows)
         log(f"[2] {time.perf_counter() - t0:.1f} s")
     if "3" in phases:
         log("[3] model parity, llava-next-mistral-7b full width, 2 layers, "
@@ -3916,15 +4173,15 @@ def main() -> int:
 
     train = None
     if "7" in phases:
-        log("[7] training parity, smollm-135m full width, 2 layers, f32, one "
-            "step, CPU plain vs GPU kernels")
+        log(f"[7] training parity, {', '.join(TRAIN_MODELS)} full width, 2 "
+            f"layers, f32, one step, CPU plain vs GPU kernels")
         t0 = time.perf_counter()
         train_parity(torch, dev)
         release(torch)
         log(f"[7] {time.perf_counter() - t0:.1f} s")
     if "7t" in phases:
-        log(f"[7t] training smollm-135m at full width and depth, bf16, "
-            f"{TRAIN_STEPS} steps")
+        log(f"[7t] training {', '.join(TRAIN_MODELS)} at full width and "
+            f"depth, bf16, {TRAIN_STEPS} steps")
         t0 = time.perf_counter()
         train = train_full(torch, dev)
         release(torch)
@@ -3950,12 +4207,12 @@ def main() -> int:
             f"{st['tokens_per_s']:.2f} output tokens/s over {st['wall_s']:.2f} s; "
             f"{st['graphs']['captures']} captures, {st['graphs']['replays']} "
             f"replays")
-    if train is not None:
-        tr = train["traced"]
-        log(f"[6] training smollm-135m (30 layers, bf16, batch "
-            f"{TRAIN_BATCH} x {TRAIN_SEQ}) on {smi}: {train['step_ms']:.1f} "
-            f"ms a step, {train['tokens_per_s']:.0f} tokens/s, peak "
-            f"{train['peak_bytes'] / 2 ** 30:.2f} GiB allocated; traced step "
+    for arch, run in (train or {}).items():
+        tr = run["traced"]
+        log(f"[6] training {arch} ({run['layers']} layers, bf16, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}) on {smi}: {run['step_ms']:.1f} "
+            f"ms a step, {run['tokens_per_s']:.0f} tokens/s, peak "
+            f"{run['peak_bytes'] / 2 ** 30:.2f} GiB allocated; traced step "
             f"{tr['wall_ms']:.1f} ms wall, {tr['device_ms']:.1f} ms device, "
             f"the gradient kernels {sum(tr['grads'].values()):.1f} ms")
     log(f"[6] total {time.perf_counter() - t_start:.1f} s, of which the "
@@ -3963,11 +4220,13 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in new_s.items())})")
 
     rows = []
+    trained = {bwd: arch for arch, (_, bwd) in TRAIN_MODELS.items()}
     for kname in KERNEL_INFO:
         r = kernels.get(kname, {})
         launches = sum(st["counts"][kname] for st in serve_stats.values())
-        if kname == "flash_attention_bwd":
-            launches = train["counts"][kname] if train else 0
+        if kname in trained:
+            run = (train or {}).get(trained[kname])
+            launches = run["counts"][kname] if run else 0
         rows.append(dict(
             name=kname, route="cuda", **KERNEL_INFO[kname],
             launches=launches, max_abs_err=r.get("max_abs_err"),
@@ -3978,12 +4237,13 @@ def main() -> int:
         if "device_kernels" in r:
             rows[-1]["device_kernels"] = r["device_kernels"]
         if ranked_train and kname in ("flash_attention",
-                                      "flash_attention_bwd"):
+                                      "flash_attention_bwd", "ssd_scan",
+                                      "ssd_scan_bwd"):
             # rank 0's launches in one train step of each 7r run
             rows[-1]["launches_7r"] = {
                 run: v["launches"][kname] for run, v in ranked_train.items()
                 if isinstance(v, dict)}
-        if kname == "flash_attention_bwd":
+        if kname in trained:
             # the training shape of 7t above; the other cases below
             rows[-1]["launches_in"] = "7t"
             rows[-1]["cases"] = {case: {key: c[key] for key in (

@@ -22,7 +22,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "paged_decode_attention", "ssd_scan")
+           "paged_decode_attention", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,6 +106,10 @@ _SIGNATURES = {
     # x, dt, a, b, c, d_skip, init (or null), y, fin, states, dec, prev,
     # B, S, H, P, N, L, dtype, stream
     "ssd_scan": ("ssd_scan_fwd", [_P] * 12 + [_I] * 7 + [_P]),
+    # x, dt, a, b, c, d_skip, prev, dy, dfinal (or null), dx, ddt, da, db,
+    # dc, dd, dinit, dstates, gnext, dec, dcum, upart, ddpart, gs, B, S,
+    # H, P, N, L, dtype, stream
+    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 23 + [_I] * 7 + [_P]),
 }
 
 

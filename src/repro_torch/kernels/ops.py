@@ -19,12 +19,14 @@ from repro_torch.kernels.decode_attention import kernel as _decode
 from repro_torch.kernels.flash_attention import backward as _flash_bwd
 from repro_torch.kernels.flash_attention import kernel as _flash
 from repro_torch.kernels.paged_decode_attention import kernel as _paged
+from repro_torch.kernels.ssd_scan import backward as _ssd_bwd
 from repro_torch.kernels.ssd_scan import kernel as _ssd
 
 _WRAPPERS = {"flash_attention": _flash,
              "flash_attention_bwd": _flash_bwd,
              "decode_attention": _decode,
-             "paged_decode_attention": _paged, "ssd_scan": _ssd}
+             "paged_decode_attention": _paged, "ssd_scan": _ssd,
+             "ssd_scan_bwd": _ssd_bwd}
 
 
 def attention(q, k, v, q_pos, kv_pos, *, window: Optional[int] = None,

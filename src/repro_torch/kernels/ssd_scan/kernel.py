@@ -8,6 +8,13 @@ tensors launch the kernel or raise. A call issues three device kernels
 as one launch. The kernel cuts the sequence into its own state chunks of
 ``plan(...).chunk`` tokens, so ``chunk`` only has to divide the
 sequence, as the reference kernel requires.
+
+Where autograd needs the gradient (grad enabled and an operand requiring
+it), a CUDA call goes through ``_SSD``, a ``torch.autograd.Function``
+whose forward keeps the launch's states before each chunk (the ``prev``
+scratch, which any launch fills) and whose backward is the hand-written
+gradient kernel (``backward.ssd_scan_bwd``); any other call launches the
+forward alone, as serving does, and drops that scratch.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build as B
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan.backward import ssd_scan_bwd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_chunked_states
 
 LAUNCHES = 0          # calls that launched the kernel since the last reset
 DEVICE_KERNELS = 3    # device kernels one call issues
@@ -72,51 +80,115 @@ def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
     y (B, S, H, P) in x's dtype and the final state (B, H, P, N) f32.
     On the card: P a multiple of 16, N in STATE_DIMS, x, b, c and
     init_state 16-byte aligned."""
-    global LAUNCHES
     operands = [x, dt, a, b, c, d_skip]
     if init_state is not None:
         operands.append(init_state)
     if B.is_plain(*operands):
         return ssd_chunked(x, dt, a, b, c, d_skip, chunk, init_state)
-    # training mamba2 or jamba on the card needs a backward kernel first
-    B.refuse_grad("ssd_scan", *operands)
-    B.require(x.dim() == 4, f"ssd_scan: x must be (B, S, H, P), got "
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return _SSD.apply(x, dt, a, b, c, d_skip, chunk, init_state)
+    return _forward(x, dt, a, b, c, d_skip, chunk, init_state)[:2]
+
+
+def ssd_scan_with_states(x, dt, a, b, c, d_skip, chunk: int,
+                         init_state: Optional[torch.Tensor] = None):
+    """``ssd_scan``'s y and final state, and the states before each chunk
+    that the gradient reads (``backward.ssd_scan_bwd``'s ``prev``): on the
+    CPU the plain version's (B, S / chunk, H, P, N) f32, on the card the
+    kernel's own scratch (planes, B, n, H, P, N) in x's dtype. No
+    autograd."""
+    operands = [x, dt, a, b, c, d_skip]
+    if init_state is not None:
+        operands.append(init_state)
+    if B.is_plain(*operands):
+        return ssd_chunked_states(x, dt, a, b, c, d_skip, chunk, init_state)
+    return _forward(x, dt, a, b, c, d_skip, chunk, init_state)
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel, keeping the states before each chunk,
+    differentiated by the gradient kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk, init_state):
+        y, fin, prev = ssd_scan_with_states(x, dt, a, b, c, d_skip, chunk,
+                                            init_state)
+        ctx.save_for_backward(x, dt, a, b, c, d_skip, init_state, prev)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, fin
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, b, c, d_skip, init_state, prev = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+            if dfinal.data_ptr() % 16:
+                dfinal = dfinal.clone()
+        dx, ddt, da, db, dc, dd, dinit = ssd_scan_bwd(
+            x, dt, a, b, c, d_skip, ctx.chunk, init_state, prev, dy, dfinal)
+        return (dx, ddt, da, db, dc, dd, None,
+                dinit if init_state is not None else None)
+
+
+def check_operands(name: str, x, dt, a, b, c, d_skip, chunk: int,
+                   init_state) -> Plan:
+    """The kernels' checks of the forward's operands on the card; returns
+    the launch's plan."""
+    B.require(x.dim() == 4, f"{name}: x must be (B, S, H, P), got "
               f"{tuple(x.shape)}")
     bsz, S, H, P = x.shape
     N = b.shape[-1]
     B.require(tuple(dt.shape) == (bsz, S, H)
               and tuple(a.shape) == (H,) and tuple(d_skip.shape) == (H,)
               and tuple(b.shape) == (bsz, S, N) and c.shape == b.shape,
-              f"ssd_scan: shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+              f"{name}: shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
               f"a{tuple(a.shape)} b{tuple(b.shape)} c{tuple(c.shape)} "
               f"d{tuple(d_skip.shape)} do not agree")
     B.require(init_state is None
               or tuple(init_state.shape) == (bsz, H, P, N),
-              f"ssd_scan: init_state must be {(bsz, H, P, N)}")
-    B.require(bsz > 0 and H > 0, f"ssd_scan: empty x {tuple(x.shape)}")
+              f"{name}: init_state must be {(bsz, H, P, N)}")
+    B.require(bsz > 0 and H > 0, f"{name}: empty x {tuple(x.shape)}")
     B.require(chunk > 0 and S > 0 and S % chunk == 0,
-              f"ssd_scan: seq {S} % chunk {chunk} != 0")
+              f"{name}: seq {S} % chunk {chunk} != 0")
     B.require(x.dtype in B.DTYPE_CODES,
-              f"ssd_scan: dtype {x.dtype} not supported (float32, bfloat16)")
+              f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
     B.require(b.dtype == x.dtype and c.dtype == x.dtype,
-              f"ssd_scan: b/c dtypes {b.dtype}/{c.dtype} differ from x's "
+              f"{name}: b/c dtypes {b.dtype}/{c.dtype} differ from x's "
               f"{x.dtype}")
-    B.require(all(t.dtype == torch.float32
-                  for t in [dt, a, d_skip, *operands[6:]]),
-              "ssd_scan: dt, a, d_skip and init_state must be float32")
-    B.require(all(t.is_contiguous() for t in operands),
-              "ssd_scan: every operand must be contiguous")
-    B.require(all(t.data_ptr() % 16 == 0 for t in (x, b, c, *operands[6:])),
-              "ssd_scan: x, b, c and init_state must be 16-byte aligned")
+    extra = [] if init_state is None else [init_state]
+    B.require(all(t.dtype == torch.float32 for t in [dt, a, d_skip, *extra]),
+              f"{name}: dt, a, d_skip and init_state must be float32")
+    B.require(all(t.is_contiguous()
+                  for t in [x, dt, a, b, c, d_skip, *extra]),
+              f"{name}: every operand must be contiguous")
+    B.require(all(t.data_ptr() % 16 == 0 for t in (x, b, c, *extra)),
+              f"{name}: x, b, c and init_state must be 16-byte aligned")
     B.require(P % HEAD_DIM_STEP == 0,
-              f"ssd_scan: head_dim {P} not a multiple of {HEAD_DIM_STEP}")
-    B.require(N in STATE_DIMS, f"ssd_scan: state_dim {N} not in {STATE_DIMS}")
-    pl = plan(bsz, S, H, P, N, x.dtype)
+              f"{name}: head_dim {P} not a multiple of {HEAD_DIM_STEP}")
+    B.require(N in STATE_DIMS, f"{name}: state_dim {N} not in {STATE_DIMS}")
+    return plan(bsz, S, H, P, N, x.dtype)
+
+
+def _forward(x, dt, a, b, c, d_skip, chunk, init_state):
+    """Checks and launches the forward kernel on CUDA tensors: y, the
+    final state and the states before each chunk (the launch's ``prev``
+    scratch, (planes, B, n, H, P, N) in x's dtype)."""
+    global LAUNCHES
+    pl = check_operands("ssd_scan", x, dt, a, b, c, d_skip, chunk,
+                        init_state)
+    bsz, S, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty_like(x)
     fin = torch.empty((bsz, H, P, N), dtype=torch.float32, device=x.device)
     scratch = torch.empty(pl.state_floats + pl.decay_floats,
                           dtype=torch.float32, device=x.device)
-    prev = torch.empty(pl.prev_elems, dtype=x.dtype, device=x.device)
+    planes = pl.prev_elems // pl.state_floats
+    prev = torch.empty((planes, bsz, pl.n_chunks, H, P, N), dtype=x.dtype,
+                       device=x.device)
     B.launch("ssd_scan", x.device, x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), b.data_ptr(), c.data_ptr(), d_skip.data_ptr(),
              init_state.data_ptr() if init_state is not None else None,
@@ -124,4 +196,4 @@ def ssd_scan(x, dt, a, b, c, d_skip, chunk: int,
              scratch[pl.state_floats:].data_ptr(), prev.data_ptr(),
              bsz, S, H, P, N, pl.chunk, B.DTYPE_CODES[x.dtype])
     LAUNCHES += 1
-    return y, fin
+    return y, fin, prev

@@ -74,12 +74,11 @@ PEAK_REASON = "no counterpart of XLA's memory analysis in the port"
 
 def collective_reason(cfg, kind: str, rules) -> str | None:
     """Why the collective term of a case is not counted, or None where it
-    is: under the baseline rules, the prefill and decode steps of every
-    decoder (attention, MoE-TP and the SSM block across ranks,
-    ``partitioning.TensorParallel``) and the train steps of the decoders
-    without an SSM block (the TP transposes and the data-parallel
-    reduction), the paths whose collectives run across ranks on the meta
-    device."""
+    is: under the baseline rules, the prefill, decode and train steps of
+    every decoder (attention, MoE-TP and the SSM block across ranks,
+    ``partitioning.TensorParallel``; in training their transposes and the
+    data-parallel reduction), the paths whose collectives run across
+    ranks on the meta device."""
     todo = "is not ported (ROADMAP.md Queue 1"
     if rules.rules.get("embed") is not None:
         what = "training" if kind == "train" else "gathers of the dense leaves"
@@ -93,9 +92,6 @@ def collective_reason(cfg, kind: str, rules) -> str | None:
     if cfg.encoder is not None:
         return (f"the encoder-decoder (whisper) under tensor parallelism "
                 f"{todo} item 4.1)")
-    if kind == "train" and any(sp.mixer == "ssm" for sp in cfg.pattern):
-        return (f"training the SSM block under tensor parallelism {todo} "
-                f"item 5, with ssd_scan's gradient on the card)")
     return None
 
 

@@ -19,10 +19,16 @@ whole, the scan (or the decode update) takes the rank's heads of x, dt
 and z and all of B and C, ``out_norm``'s mean square is the sum over
 the ranks of theirs (f32), ``w_out``'s row block is contracted and
 summed over the ranks, and the rank writes back its block of the conv
-tail and its heads of the state. It serves prefill and decode steps: a
-gradient under tensor parallelism raises (the SSM train step across
-ranks waits on ``ssd_scan``'s gradient on the card, ROADMAP.md Queue 1
-item 5).
+tail and its heads of the state. Its transposes, for the train step:
+the block's normed input enters the column-cut ``w_in`` through
+``TensorParallel.enter`` (its gradient summed over the ranks); the fused
+activation and the conv's weights are gathered by ``gather_zero``, since
+each rank consumes its own heads and all of B and C (their gradient the
+reduce-scatter of the ranks' partial sums); the summed squares feed each
+rank's own heads, so their gradient is the sum of the ranks' too
+(``tp_all_reduce`` then ``tp_enter``); ``w_out``'s partial products are
+summed with a pass-through gradient (``TensorParallel.contract``). The
+conv tail is gathered for serving only.
 """
 from __future__ import annotations
 
@@ -102,11 +108,10 @@ def _softplus(x):
                                           device=x.device))
 
 
-def _heads_parallel(p, x, cfg: ModelConfig):
+def _heads_parallel(cfg: ModelConfig):
     """This rank's ``TensorParallel`` where it cuts the block's heads, or
     None where every leaf is whole on every rank. A cut of the block's
-    leaves that leaves its heads whole, and a gradient under tensor
-    parallelism, raise ``NotImplementedError``."""
+    leaves that leaves its heads whole raises ``NotImplementedError``."""
     tp = tensor_parallel()
     if tp is None:
         return None
@@ -115,22 +120,17 @@ def _heads_parallel(p, x, cfg: ModelConfig):
                    "the SSM block with heads that the axis does not "
                    "divide (item 4.1)")
         return None
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in p.values())):
-        raise NotImplementedError(
-            "ssm_block: a gradient under tensor parallelism: the SSM block "
-            "serves prefill and decode steps across ranks; its train step "
-            "waits on ssd_scan's gradient on the card (ROADMAP.md Queue 1 "
-            "item 5)")
     return tp
 
 
-def _gathered(tp, t, logical: str, dim: int):
-    """``t`` whole along the axis: gathered where its last dim (``dim``
-    whole, named ``logical``) is cut, else as it is."""
+def _for_own_heads(tp, t, logical: str, dim: int):
+    """``t`` whole along the axis, for each rank's own heads to consume:
+    gathered where its last dim (``dim`` whole, named ``logical``) is cut,
+    else as it is; either way its gradient is the sum of the ranks'
+    (``gather_zero``'s reduce-scatter, or ``tp_enter``'s all-reduce)."""
     if not tp.cut(logical, dim):
-        return t
-    return collectives.all_gather(t, tp.mesh, tp.axis, dim=-1)
+        return tp.enter(t)
+    return collectives.gather_zero(t, tp.mesh, tp.axis, dim=-1)
 
 
 def ssm_block(p, x, cfg: ModelConfig, *,
@@ -154,20 +154,23 @@ def ssm_block(p, x, cfg: ModelConfig, *,
     P = ssm.head_dim
     conv_dim = inner + 2 * N
     bsz, S = x.shape[:2]
-    tp = _heads_parallel(p, x, cfg)
+    fused = 2 * inner + 2 * N + nh
+    tp = _heads_parallel(cfg)
     h0, nh_loc = tp.block(nh) if tp is not None else (0, nh)
 
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if tp is not None and tp.cut("inner", fused):
+        h = tp.enter(h)
     zxbcdt = h @ p["w_in"]                            # (B,S, 2*inner+2N+nh)
     zxbcdt = shard(zxbcdt, "batch", None, "act_inner")
     conv_w, conv_b = p["conv_w"], p["conv_b"]
     tail = cache[1] if cache is not None else None
     if tp is not None:
-        zxbcdt = _gathered(tp, zxbcdt, "inner", 2 * inner + 2 * N + nh)
-        conv_w, conv_b = (_gathered(tp, t, "inner", conv_dim)
+        zxbcdt = _for_own_heads(tp, zxbcdt, "inner", fused)
+        conv_w, conv_b = (_for_own_heads(tp, t, "inner", conv_dim)
                           for t in (conv_w, conv_b))
-        if tail is not None:
-            tail = _gathered(tp, tail, "act_inner", conv_dim)
+        if tail is not None and tp.cut("act_inner", conv_dim):
+            tail = collectives.all_gather(tail, tp.mesh, tp.axis, dim=-1)
     heads = slice(h0 * P, (h0 + nh_loc) * P)          # this rank's channels
     z = zxbcdt[..., heads]
     xbc = zxbcdt[..., inner: 2 * inner + 2 * N]
@@ -211,10 +214,11 @@ def ssm_block(p, x, cfg: ModelConfig, *,
     if tp is None:
         y = rms_norm(y, p["out_norm"], cfg.norm_eps)
         return x + shard(y @ p["w_out"], "batch", None, "act_embed"), cache
-    # out_norm's mean square over the whole of 'inner': the ranks' sums
+    # out_norm's mean square over the whole of 'inner': the ranks' sums,
+    # which each rank's own heads consume
     y32 = y.float()
-    ss = collectives.all_reduce(torch.sum(y32 * y32, dim=-1, keepdim=True),
-                                tp.mesh, tp.axis)
+    ss = tp.enter(collectives.tp_all_reduce(
+        torch.sum(y32 * y32, dim=-1, keepdim=True), tp.mesh, tp.axis))
     y = (y32 * torch.rsqrt(ss / inner + cfg.norm_eps)
          * p["out_norm"].float()).to(y.dtype)
     out = tp.contract(y, p["w_out"], "inner", inner)

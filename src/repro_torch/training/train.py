@@ -27,8 +27,7 @@ from repro_torch.launch import collectives
 from repro_torch.models import partitioning
 from repro_torch.models.model import train_forward
 from repro_torch.models.params import (attn_spec, flatten, leaves,
-                                       map_tree, param_structure, ssm_spec,
-                                       unflatten)
+                                       map_tree, param_structure, unflatten)
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 
@@ -116,10 +115,11 @@ def _process_mesh(cfg: ModelConfig):
 
     Across ranks the step runs under the baseline rules (tensor
     parallelism over 'model', data parallelism over the batch axes) for
-    the dense decoders and for MoE-TP (each expert's 'ff' over 'model'),
-    and under the expert-parallel rules; it raises where a part is not
-    ported: fsdp's ZeRO-3 training across data ranks, and the SSM block
-    and the encoder-decoder under tensor parallelism."""
+    the dense decoders, for MoE-TP (each expert's 'ff' over 'model') and
+    for the SSM block on each rank's heads (mamba2, jamba), and under the
+    expert-parallel rules; it raises where a part is not ported: fsdp's
+    ZeRO-3 training across data ranks, and the encoder-decoder under
+    tensor parallelism."""
     rules = partitioning.current_rules()
     mesh = getattr(rules, "mesh", None)
     if mesh is None or not hasattr(mesh, "coordinate"):
@@ -130,17 +130,11 @@ def _process_mesh(cfg: ModelConfig):
             f"{rules.size('batch')} ways over {rules.rules.get('batch')}: "
             f"fsdp's ZeRO-3 training across data ranks is not ported "
             f"(ROADMAP.md Queue 1 item 4.3)")
-    for what, present, specs in (
-            ("the SSM block under tensor parallelism (item 5, with "
-             "ssd_scan's gradient on the card)",
-             any(s.mixer == "ssm" for s in cfg.pattern), ssm_spec),
-            ("the encoder-decoder (whisper) under tensor parallelism (item "
-             "4.1)", cfg.encoder is not None,
-             lambda c: attn_spec(c, cross=True))):
-        if present:
-            partitioning.refuse_cut(
-                "train_step", functools.partial(specs, cfg),
-                f"training {what}")
+    if cfg.encoder is not None:
+        partitioning.refuse_cut(
+            "train_step", functools.partial(attn_spec, cfg, cross=True),
+            "training the encoder-decoder (whisper) under tensor "
+            "parallelism (item 4.1)")
     return mesh
 
 

@@ -39,8 +39,10 @@ and 128); the forward's log-sum-exp equals the plain version's; autograd
 reaches the gradient through ``flash_attention``; serving with autograd
 on launches what it launches without, and asks the forward for no
 log-sum-exp; a reduced smollm
-train step on the card equals the CPU's (remat bitwise equal); training
-mamba2 on the card raises (``ssd_scan`` has no backward kernel).
+train step on the card equals the CPU's (remat bitwise equal). The SSD
+scan's gradient kernel (``ssd_scan_bwd``) equals the plain version of its
+arithmetic, bitwise deterministic, and autograd reaches it through
+``ssd_scan``; a reduced mamba2 train step on the card equals the CPU's.
 """
 import dataclasses
 import functools
@@ -63,9 +65,11 @@ from repro_torch.kernels.paged_decode_attention.kernel import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref)
+from repro_torch.kernels.ssd_scan import backward as SB  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as SSD  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,  # noqa: E402
+                                              ssd_chunked_bwd)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import frontend as FE  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -260,6 +264,69 @@ def test_ssd_kernel_matches_plain(dev, monkeypatch, case, dtype):
     torch.testing.assert_close(y, yr, **TOL[dtype])
     # the state is f32 on both sides from the same (rounded) inputs
     torch.testing.assert_close(fin, fr, **TOL[f32])
+
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, P, N, chunk, init and a final-state gradient[, options]
+    (2, 64, 4, 32, 16, 16, False),
+    (1, 320, 3, 64, 128, 64, True),           # a ragged last bf16 chunk
+    (2, 200, 2, 16, 64, 40, True, dict(pad=30)),   # dt = 0 over the last 30
+    (1, 160, 2, 48, 64, 32, True),            # one slice of 48
+    (1, 192, 1, 128, 16, 64, True),           # two head-dim slices
+    (1, 600, 2, 32, 64, 40, True, dict(state_chunk=128)),
+    (1, 300, 2, 32, 64, 100, True, dict(strong=True)),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_gradient_kernel_matches_plain(dev, monkeypatch, case, dtype):
+    """ssd_scan_bwd, fed the forward kernel's states, against the plain
+    version of its arithmetic (bf16; in f32 against it run in f64, which
+    the plain f32 run's own sums would miss at 1e-4), two calls bitwise
+    equal; autograd reaches it through ssd_scan, one launch a backward."""
+    B, S, H, P, N, chunk, ends = case[:7]
+    opt = case[7] if len(case) > 7 else {}
+    if "state_chunk" in opt:
+        monkeypatch.setitem(SSD.STATE_CHUNK, dtype, min(
+            opt["state_chunk"], SSD.STATE_CHUNK[dtype]))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f32 = torch.float32
+    x = _randn(gen, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), f32, dev))
+    if opt.get("strong"):
+        dt = 5 + dt.clamp(max=1)
+    if opt.get("pad"):
+        dt[:, -opt["pad"]:] = 0
+    a = -torch.exp(0.3 * _randn(gen, (H,), f32, dev))
+    if opt.get("strong"):
+        a = 8 * a / a.abs().max()
+    b = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
+    c = (0.3 * _randn(gen, (B, S, N), f32, dev)).to(dtype)
+    d = torch.ones((H,), device=dev)
+    s0 = 0.1 * _randn(gen, (B, H, P, N), f32, dev) if ends else None
+    dy = _randn(gen, (B, S, H, P), dtype, dev)
+    dfin = 0.1 * _randn(gen, (B, H, P, N), f32, dev) if ends else None
+    args = (x, dt, a, b, c, d, chunk, s0)
+    prev = SSD.ssd_scan_with_states(*args)[2]
+    ops.reset_launch_counts()
+    got = SB.ssd_scan_bwd(*args, prev, dy, dfin)
+    again = SB.ssd_scan_bwd(*args, prev, dy, dfin)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 2
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    own = SSD.plan(B, S, H, P, N, dtype).chunk
+    plain = [t.double() if dtype == f32 and isinstance(t, torch.Tensor)
+             else t for t in (*args, None, dy, dfin)]
+    plain[6] = own if S % own == 0 else chunk
+    want = ssd_chunked_bwd(*plain)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.double(), w.double(), **TOL[dtype])
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, a, b, c, d)]
+    y, fin = ssd_scan(*leaves, chunk, s0)
+    ops.reset_launch_counts()
+    grads = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 1
+    direct = SB.ssd_scan_bwd(*args, prev, dy, None)
+    for g, w in zip(grads, direct):
+        assert torch.equal(g, w)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -892,7 +959,7 @@ def test_launch_counts_after_replays(dev):
     assert ops.launch_counts() == {
         "flash_attention": n_layers * len(reqs), "flash_attention_bwd": 0,
         "decode_attention": n_layers * steps,
-        "paged_decode_attention": 0, "ssd_scan": 0}
+        "paged_decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # one graph each; our kernel is one node a layer among many, named
     # in the graph by its device function
     assert census["prefill"]["flash_attention nodes"] == n_layers
@@ -1405,16 +1472,30 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
 
 
 def test_mamba2_training_raises_on_the_card(dev):
-    """ssd_scan has no backward kernel: a train step of mamba2 on the
-    card raises instead of returning gradients that skip the scan."""
-    from repro_torch.models.params import map_tree
+    """One f32 train step of reduced mamba2 (state dim 64, which the
+    kernels take) on the card (ssd_scan and its gradient kernel,
+    ssd_scan_bwd) against the CPU's (plain versions): the loss and the
+    updated params; one forward and one gradient launch a layer; remat
+    equals no remat on the card, bitwise."""
+    from repro_torch.models.params import leaves, map_tree
     from repro_torch.training.train import make_train_step
     cfg, params, batch, opt = _train_setup(dev, "mamba2-370m")
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
                                                            state_dim=64))
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    batch = map_tree(lambda t: t.to(dev), batch)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        make_train_step(cfg, opt, remat=False)(params, opt.init(params),
-                                               batch)
+    params = init_params(cfg, torch.Generator(device="cpu").manual_seed(0),
+                         device="cpu")
+    p_cpu, _, m_cpu = make_train_step(cfg, opt, remat=False)(
+        params, opt.init(params), batch)
+    to = functools.partial(map_tree, lambda t: t.to(dev))
+    gp, gb = to(params), to(batch)
+    ops.reset_launch_counts()
+    p_gpu, _, m_gpu = make_train_step(cfg, opt, remat=False)(
+        gp, opt.init(gp), gb)
+    assert ops.launch_counts()["ssd_scan"] == cfg.n_layers
+    assert ops.launch_counts()["ssd_scan_bwd"] == cfg.n_layers
+    p_rem, _, m_rem = make_train_step(cfg, opt, remat=True)(
+        gp, opt.init(gp), gb)
+    assert abs(float(m_cpu["loss"]) - float(m_gpu["loss"])) < 1e-4
+    for a, b, c in zip(leaves(p_cpu), leaves(p_gpu), leaves(p_rem)):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+        assert torch.equal(b, c)

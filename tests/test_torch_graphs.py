@@ -271,6 +271,10 @@ def test_dense_prefill_payload_survives_the_next_prefill(models, name):
      "S2_S2_S2_PKiS4_PKfS6_P13__nv_bfloat16S8_iiiiiiff", "flash_attention_bwd"),
     ("_ZN12_GLOBAL__N_12tc19flash_bwd_dq_kernelILi64EEEv14CUtensorMap_stS2_S2_"
      "S2_PKiS4_PKfS6_P13__nv_bfloat16iiiiiiff", "flash_attention_bwd"),
+    ("_ZN12_GLOBAL__N_117ssd_dstate_kernelI13__nv_bfloat16Li128EEEvPKT_PKfS6_"
+     "S4_PfS7_iiii", "ssd_scan_bwd"),
+    ("_ZN12_GLOBAL__N_118ssd_dfinish_kernelIfEEvPKfS2_S2_S2_S2_S2_PfS3_S3_iiii",
+     "ssd_scan_bwd"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
      "St5arrayIPcLm1EEEEviT0_T1_", None),
     ("_ZN2at6native17reduce_out_kernelIfEEvv", None),
@@ -288,7 +292,7 @@ def test_device_kernels_per_launch():
     assert ops.device_kernels() == {
         "flash_attention": 1, "flash_attention_bwd": 3,
         "decode_attention": 1, "paged_decode_attention": 1,
-        "ssd_scan": SK.DEVICE_KERNELS}
+        "ssd_scan": SK.DEVICE_KERNELS, "ssd_scan_bwd": 7}
 
 
 class _Counted:

@@ -502,10 +502,11 @@ def test_dry_run_counts_the_dense_decoders_only():
     v gathered and the step combined across ranks) and of a MoE decoder's
     (mixtral-8x7b: MoE-TP's expert buffers all-reduced), and null with
     its reason under the fsdp rules; the train cases of the six dense
-    decoders are counted under the baseline rules, single-pod and
-    multi-pod, and every case still null has a reason that names what is
-    missing (``collective_reason``: whisper, the SSM block's training,
-    fsdp, the expert-parallel branch on meta, ``decode_kv='seq'``)."""
+    decoders and of the SSM decoders (mamba2, jamba) are counted under the
+    baseline rules, single-pod and multi-pod, and every case still null
+    has a reason that names what is missing (``collective_reason``:
+    whisper, fsdp, the expert-parallel branch on meta,
+    ``decode_kv='seq'``)."""
     res = dryrun.run_case("glm4-9b", "decode_32k", save=False)
     assert res["collective_reason"] is None
     coll = res["collective_bytes"]
@@ -528,9 +529,7 @@ def test_dry_run_counts_the_dense_decoders_only():
              "expert-parallel"),
             ("glm4-9b", "decode", {"decode_kv": "seq"}, "decode_kv='seq'"),
             ("smollm-135m", "train", {"fsdp": True}, "ZeRO-3 training"),
-            ("mamba2-370m", "train", {}, "SSM"),
             ("whisper-base", "train", {}, "encoder-decoder"),
-            ("jamba-v0.1-52b", "train", {}, "SSM"),
             ("llama4-scout-17b-a16e", "train", {"expert_parallel": True},
              "expert-parallel")):
         rules = PT.tp_rules(axis_sizes=mesh.axis_sizes, **kw)
@@ -538,7 +537,9 @@ def test_dry_run_counts_the_dense_decoders_only():
         assert why in reason, reason
     for multi_pod in (False, True):
         mesh = make_production_mesh(multi_pod=multi_pod)
-        for arch in DENSE:
+        # the SSM decoders' train cases are counted too (since ssd_scan
+        # has its gradient on the card)
+        for arch in DENSE + ("mamba2-370m", "jamba-v0.1-52b"):
             rules = PT.tp_rules(multi_pod=multi_pod,
                                 axis_sizes=mesh.axis_sizes)
             assert dryrun.collective_reason(get_config(arch), "train",
@@ -704,19 +705,17 @@ def test_moe_ssm_and_whisper_refuse_tensor_parallelism():
 
 
 def test_train_step_refuses_tensor_parallelism():
-    """The train step runs the dense decoders and MoE-TP under tensor
-    parallelism (``tests/test_torch_train_parallel.py``,
-    ``tests/test_torch_tp_moe_ssm.py``); the SSM block (mamba2, jamba)
-    and the encoder-decoder it refuses before any work, each naming what
-    is not ported and its ROADMAP item."""
-    for arch, what in (("mamba2-370m", "SSM block.*item 5"),
-                       ("jamba-v0.1-52b", "SSM block.*item 5"),
-                       ("whisper-base", "encoder-decoder.*item 4.1")):
-        step = make_train_step(get_config(arch).reduced(), AdamW())
-        with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
-                                                match=what):
-            step(None, None, None)
-    for arch in (ARCH, "mixtral-8x7b"):
+    """The train step runs the dense decoders, MoE-TP and the SSM block
+    (mamba2, jamba) under tensor parallelism
+    (``tests/test_torch_train_parallel.py``,
+    ``tests/test_torch_tp_moe_ssm.py``, ``tests/test_torch_ssd_grad.py``);
+    the encoder-decoder it refuses before any work, naming what is not
+    ported and its ROADMAP item."""
+    step = make_train_step(get_config("whisper-base").reduced(), AdamW())
+    with PT.use_rules(_tp()), pytest.raises(NotImplementedError,
+                                            match="encoder-decoder.*item 4.1"):
+        step(None, None, None)
+    for arch in (ARCH, "mixtral-8x7b", "mamba2-370m", "jamba-v0.1-52b"):
         step = make_train_step(get_config(arch).reduced(), AdamW())
         with PT.use_rules(_tp()), pytest.raises(AttributeError):
             step(None, None, None)   # past the refusals: no parameters

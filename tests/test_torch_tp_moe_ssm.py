@@ -632,30 +632,26 @@ def test_rank_blocks_hold_the_dry_run_bytes(arch, multi_pod):
 
 
 def test_collective_reason_counts_moe_and_ssm_serving():
-    """Under the baseline rules the dry-run counts the prefill and decode
-    cases of every MoE and SSM decoder and the train cases of the MoE
-    decoders without an SSM block; every other case is null with a reason
-    that names what is missing and its ROADMAP item."""
+    """Under the baseline rules the dry-run counts the prefill, decode and
+    train cases of every MoE and SSM decoder (the SSM block's train step
+    across ranks, with ssd_scan's gradient on the card); every other case
+    is null with a reason that names what is missing and its ROADMAP
+    item."""
     for multi_pod in (False, True):
         mesh = make_production_mesh(multi_pod=multi_pod)
         rules = PT.tp_rules(multi_pod=multi_pod, axis_sizes=mesh.axis_sizes)
         for arch in ARCHS:
             cfg = get_config(arch)
-            for kind in ("prefill", "decode"):
-                assert dryrun.collective_reason(cfg, kind, rules) is None
-            reason = dryrun.collective_reason(cfg, "train", rules)
-            if cfg.ssm is None:
-                assert reason is None, arch
-            else:
-                assert "SSM block" in reason and "item 5" in reason, reason
+            for kind in ("prefill", "decode", "train"):
+                assert dryrun.collective_reason(cfg, kind, rules) is None, (
+                    arch, kind)
     mesh = make_production_mesh()
     for arch, kind, kw, why in (
             ("whisper-base", "prefill", {}, "item 4.1"),
             ("whisper-base", "train", {}, "item 4.1"),
-            ("mamba2-370m", "train", {}, "item 5"),
-            ("jamba-v0.1-52b", "train", {}, "item 5"),
             ("glm4-9b", "decode", {"decode_kv": "seq"}, "item 4.2"),
             ("mixtral-8x7b", "train", {"fsdp": True}, "item 4.3"),
+            ("jamba-v0.1-52b", "train", {"fsdp": True}, "item 4.3"),
             ("glm4-9b", "prefill", {"fsdp": True}, "item 4.3"),
             ("mixtral-8x7b", "prefill", {"expert_parallel": True},
              "expert-parallel")):
@@ -664,25 +660,45 @@ def test_collective_reason_counts_moe_and_ssm_serving():
         assert reason is not None and why in reason, (arch, kind, reason)
 
 
-def test_ssm_block_refuses_a_gradient_under_tensor_parallelism():
-    """The SSM block serves prefill and decode steps across ranks; a
-    gradient through it under tensor parallelism raises before any
-    collective, naming ssd_scan's gradient (ROADMAP Queue 1 item 5)."""
-    cfg = get_config("mamba2-370m").reduced()
+def test_ssm_block_refuses_a_gradient_under_tensor_parallelism(tmp_path):
+    """The SSM block's gradient under tensor parallelism equals one
+    process's: reduced mamba2-370m cut to one layer, its train step at
+    1 x 2 over gloo (mu after one step is 0.1 times the clipped gradient,
+    so every leaf's gradient is held, the block's own among them) against
+    one process. Heads that the axis does not divide (16 over 3) still
+    raise before any collective, naming their ROADMAP item (4.1)."""
+    plan = R.Plan("mamba2-370m", layers=1, expert_parallel=False,
+                  train=TRAIN)
     desc = MeshDesc((1, 2), AXES)
-    coords = R.coordinates(desc, 0)
+    one = R.run_plan(plan, desc, "cpu")["train"]
+    got = [g[0]["train"] for g in R.run_ranks(
+        desc, [("plan", dict(plan=plan))], backend="gloo", device="cpu",
+        run_dir=tmp_path, timeout=TIMEOUT)]
+    cfg = R.plan_config(plan)
+    p, s, _ = R.gather_blocks(cfg, R.OUT_ROLES["train"], (None,) * 3,
+                              [rec["out"] for rec in got], one["out"],
+                              R.block_rules(plan, desc), desc)
+    want_p, want_s, want_m = one["out"]
+    block = flatten(s.mu["blocks"][0]["ssm"])
+    assert block and all(bool(g.abs().max() > 0) for g in block)
+    for a, b in zip(flatten((p, s.mu, s.nu)),
+                    flatten((want_p, want_s.mu, want_s.nu))):
+        assert a.shape == b.shape
+        _close(a, b)
+    for rec in got:
+        _close(rec["out"][2]["loss"], want_m["loss"])
+    whole = get_config("mamba2-370m").reduced()
+    desc = MeshDesc((1, 3), AXES)
     rules = PT.tp_rules(axis_sizes=desc.axis_sizes,
-                        mesh=CountingMesh(desc, coords))
-    p = R.rank_block(cfg, ("params",), (None,), (abstract_params(
-        cfg, torch.float32),), rules, coords)[0]
-    layer = {k: w[0] for k, w in p["blocks"][0]["ssm"].items()}
-    x = torch.empty((1, 8, cfg.d_model), device="meta", requires_grad=True)
+                        mesh=CountingMesh(desc, R.coordinates(desc, 0)))
+    layer = {k: w[0] for k, w in abstract_params(
+        whole, torch.float32)["blocks"][0]["ssm"].items()}
+    x = torch.empty((1, 8, whole.d_model), device="meta", requires_grad=True)
+    collectives.reset()
     with PT.use_rules(rules), pytest.raises(NotImplementedError,
-                                            match="item 5"):
-        SSM.ssm_block(layer, x, cfg)
-    with PT.use_rules(rules), torch.no_grad():
-        y, _ = SSM.ssm_block(layer, x, cfg)
-    assert y.shape == x.shape
+                                            match="item 4.1"):
+        SSM.ssm_block(layer, x, whole)
+    assert collectives.collective_bytes() == {}
 
 
 def test_a_plans_depth_is_a_whole_number_of_periods():

@@ -36,9 +36,11 @@ Phases (every failure raises and ends the run with a non-zero code):
      against the plain version's; the SSD scan's gradient kernel
      (ssd_scan_bwd), fed the forward kernel's states, against the plain
      version of its arithmetic at mamba2-370m's training shape (B 4 x
-     2048, H 32 and a rank's 16) and two small cases (an initial state, a
-     final-state gradient, a ragged chunk, P 96, N 16), bf16 and (against
-     the plain version run in f64) f32, two calls bitwise equal, timed; at glm4-9b's shapes (32 q heads over 2
+     2048, H 32 and a rank's 16), jamba-v0.1-52b's 128 heads (B 1 x
+     2048) and two small cases (an initial state, a final-state
+     gradient, a ragged chunk, P 96, N 16), bf16 and (against the plain
+     version run in f64) f32, two calls bitwise equal, its device
+     kernels a call those of a CUDA graph's capture, timed; at glm4-9b's shapes (32 q heads over 2
      kv heads of 128, a group of 16): flash at its 2560 prefill and a
      512-token chunk, and the decode pair in bf16, f32 and on fp8 K/V, a
      4096-slot window case, a row without keys, and MQA (32/1, a group of
@@ -1338,16 +1340,21 @@ def check_ssd(torch, dev):
 # the rows of ssd_scan_bwd in phase 2: name -> (B, S, H, P, N, the
 # caller's chunk, an initial state and a nonzero final-state gradient);
 # the first is mamba2-370m's training shape in phase 7t, the second a
-# rank's heads at 1 x 2 in phase 7r, the last small ones hold both ends of
-# the reverse recurrence, a ragged last chunk of the kernel's (320 tokens
-# over its 256-token chunks in bf16), a head dim of two slices (96) and
-# the smallest state dim
+# rank's heads at 1 x 2 in phase 7r, the third jamba-v0.1-52b's 128 heads
+# on one card (the heads' sum of dC and dB over 128), the last small ones
+# hold both ends of the reverse recurrence, a ragged last chunk of the
+# kernel's (320 tokens over its 256-token chunks in bf16), a head dim of
+# two slices (96) and the smallest state dim
 SSD_BWD_CASES = {
     "mamba2 train": (TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 256, False),
     "mamba2 rank at 1 x 2": (TRAIN_BATCH, TRAIN_SEQ, 16, 64, 128, 256, False),
+    "jamba heads": (1, TRAIN_SEQ, 128, 64, 128, 256, False),
     "init + dfinal, ragged": (2, 320, 4, 96, 64, 320, True),
     "init + dfinal, N16": (1, 192, 3, 32, 16, 64, True),
 }
+SSD_BWD_TIMED = {"mamba2 train": ("bfloat16", "float32"),
+                 "mamba2 rank at 1 x 2": ("bfloat16",),
+                 "jamba heads": ("bfloat16", "float32")}
 SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dinit")
 
 
@@ -1358,8 +1365,8 @@ def check_ssd_bwd(torch, dev):
     the forward kernel's states before each of its chunks: each of the
     seven gradients within TOL (max |plain| printed beside its error), two
     calls bitwise equal; in f32 against the plain version run in f64 on
-    the same values (its f32 run's own distance from that printed). The two training shapes timed in bf16 (the first
-    in f32 too), with a bound of the bytes it must move (x, dy, dx, B, C,
+    the same values (its f32 run's own distance from that printed). The
+    rows of SSD_BWD_TIMED timed in their dtypes, with a bound of the bytes it must move (x, dy, dx, B, C,
     their gradients, dt, ddt, the forward's states) and its products over
     64-token sub-chunks, as ``check_ssd`` counts the forward's; no single
     PyTorch call computes it (library_ms None). Returns the rows by
@@ -1442,11 +1449,7 @@ def check_ssd_bwd(torch, dev):
             assert same and not bad, (name, dtype, bad)
             del args, got, again, want
             release(torch)
-        if name not in ("mamba2 train", "mamba2 rank at 1 x 2"):
-            continue
-        timed = ("bfloat16", "float32") if name == "mamba2 train" else (
-            "bfloat16",)
-        for dtype in timed:
+        for dtype in SSD_BWD_TIMED.get(name, ()):
             def make():
                 return inputs(case, dtype), None
             first = make()
@@ -3761,6 +3764,11 @@ def _train_full(torch, dev, arch, kernels, keep):
     assert counts[bwd] == cfg.n_layers * TRAIN_STEPS
     assert counts[fwd] == 2 * cfg.n_layers * TRAIN_STEPS
     traced = trace_step(torch, step_fn, params, state, batches[-1], bwd)
+    share = traced["parts"].get(bwd, 0.0)
+    log(f"  {bwd} in the traced step: {share:.3f} ms of its "
+        f"{traced['device_ms']:.3f} ms of device time "
+        f"({100 * share / max(traced['device_ms'], 1e-9):.1f} %), "
+        f"{cfg.n_layers} launches")
     res = dict(counts=counts, losses=losses, step_ms=1e3 * step_s,
                tokens_per_s=tokens / step_s, peak_bytes=peak, traced=traced,
                layers=cfg.n_layers)

@@ -107,9 +107,9 @@ _SIGNATURES = {
     # B, S, H, P, N, L, dtype, stream
     "ssd_scan": ("ssd_scan_fwd", [_P] * 12 + [_I] * 7 + [_P]),
     # x, dt, a, b, c, d_skip, prev, dy, dfinal (or null), dx, ddt, da, db,
-    # dc, dd, dinit, dstates, gnext, dec, dcum, upart, ddpart, gs, B, S,
-    # H, P, N, L, dtype, stream
-    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 23 + [_I] * 7 + [_P]),
+    # dc, dd, dinit, cum, dstates, dec, gst, gspart, mpart, colp, rowp,
+    # upart, ddpart, offp, dapart, B, S, H, P, N, L, dtype, stream
+    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 28 + [_I] * 7 + [_P]),
 }
 
 

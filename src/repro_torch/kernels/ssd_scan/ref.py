@@ -115,8 +115,10 @@ def ssd_chunked_bwd(x, dt, a, b, c, d_skip, chunk: int,
              + exp(cum_i) S^T dy_i
       dB_j = sum_{i>=j} exp(cum_i - cum_j) (dy_i.xdt_j) C_i
              + exp(cum_last - cum_j) G^T xdt_j
-    summed over the heads for dB and dC (one group shared by every head);
-    the pair weights w_ij = (C_i.B_j) exp(cum_i - cum_j) (dy_i.xdt_j) give
+    summed over the heads for dB and dC (one group shared by every head):
+    the pair term from the heads' sum of M_ij = exp(cum_i - cum_j)
+    (dy_i.xdt_j), formed once a chunk, the state terms as products over
+    the heads and P; the pair weights w_ij = (C_i.B_j) M_ij give
     dcum_i their row sum less their column sum, plus the off-diagonal and
     the chunk-end terms; dl is dcum's reverse cumulative sum over the
     chunk, from which ddt (with x.dxdt), da and dd_skip."""
@@ -161,11 +163,12 @@ def ssd_chunked_bwd(x, dt, a, b, c, d_skip, chunk: int,
     gb = torch.einsum("bchpn,bcjn->bchjp", gnext, bc)  # G B_j
     dxdt = (torch.einsum("bchij,bcihp->bcjhp", scores, dyc)
             + (decay_to_end[..., None] * gb).movedim(2, 3))
+    msum = m.sum(2)                                   # (B,nc,i,j), the heads'
     sdy = torch.einsum("bchpn,bcihp->bchin", prev, dyc)    # S^T dy_i
-    dc = (torch.einsum("bchij,bcjn->bcin", m, bc)
+    dc = (torch.einsum("bcij,bcjn->bcin", msum, bc)
           + torch.einsum("bchi,bchin->bcin", decay_in, sdy))
     gx = torch.einsum("bchpn,bcjhp->bchjn", gnext, xdt)    # G^T xdt_j
-    db = (torch.einsum("bchij,bcin->bcjn", m, cc)
+    db = (torch.einsum("bcij,bcin->bcjn", msum, cc)
           + torch.einsum("bchj,bchjn->bcjn", decay_to_end, gx))
 
     w = cb[:, :, None] * m                            # (B,nc,H,i,j)

@@ -275,6 +275,13 @@ def test_ssd_kernel_matches_plain(dev, monkeypatch, case, dtype):
     (1, 192, 1, 128, 16, 64, True),           # two head-dim slices
     (1, 600, 2, 32, 64, 40, True, dict(state_chunk=128)),
     (1, 300, 2, 32, 64, 100, True, dict(strong=True)),
+    # head counts no head group of the pair pass divides, one of them
+    # over fewer tokens than a 64-token tile
+    (1, 40, 1, 32, 64, 8, True),
+    (2, 320, 3, 64, 128, 64, True),
+    (1, 256, 5, 64, 16, 128, False),
+    # jamba-v0.1-52b's heads on one card: the heads' sum over 128
+    (1, 2048, 128, 64, 128, 256, False),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_gradient_kernel_matches_plain(dev, monkeypatch, case, dtype):

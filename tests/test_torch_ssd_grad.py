@@ -8,6 +8,9 @@ on the CPU, in f32.
   chunks, a ragged batch (rows padded with dt = 0, and one chunk of an
   odd length), with and without an initial state, a zero and a nonzero
   gradient of the final state, state dims 16 and 64.
+* The same at head counts no head group of the kernel divides (1, 3, 5),
+  one case shorter than a 64-token tile; ``backward.workspace``, the
+  kernel's scratch from shapes alone.
 * ``kernel._SSD``, the autograd Function that CUDA tensors take, on CPU
   tensors (its plain forward keeping the states, its plain backward)
   gives autograd's gradients.
@@ -40,6 +43,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.kernels.ssd_scan import backward as SB  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,  # noqa: E402
                                               ssd_chunked_bwd)
@@ -80,12 +84,17 @@ def _close(a, b, where=""):
 LAYOUTS = {"chunks": (2, 64, 3, 16, 16, {}),
            "ragged": (2, 40, 2, 16, 8, {1: 13}),
            "one odd chunk": (1, 24, 2, 16, 24, {0: 5})}
+# head counts that no group of the kernel's pair pass divides (1, 3, 5),
+# one of them over fewer tokens than a 64-token tile
+HEAD_LAYOUTS = {"one head, 40 tokens": (1, 40, 1, 16, 8, {}),
+                "three heads": (2, 48, 3, 16, 16, {1: 9}),
+                "five heads": (1, 64, 5, 32, 32, {})}
 
 
 def _inputs(layout, N, init, dfinal, seed=0):
     """numpy inputs of one case: x, dt, a, b, c, d_skip, init_state (or
     None), and the output gradients dy, dfinal (or None)."""
-    bsz, S, H, P, _, pads = LAYOUTS[layout]
+    bsz, S, H, P, _, pads = {**LAYOUTS, **HEAD_LAYOUTS}[layout]
     rng = np.random.default_rng(seed)
     f32 = np.float32
     dt = np.log1p(np.exp(rng.normal(size=(bsz, S, H)))).astype(f32)
@@ -156,6 +165,67 @@ def test_plain_gradient_matches_autograd_and_jax(layout, N, init, dfinal):
     if not init:   # the gradient of a zero initial state is still given
         assert tuple(got[6].shape) == v["x"].shape[:1] + (
             v["x"].shape[2], v["x"].shape[3], N)
+
+
+@pytest.mark.parametrize("layout", list(HEAD_LAYOUTS))
+def test_plain_gradient_at_odd_head_counts(layout):
+    """The plain gradient, whose dC and dB take the heads' sum of M first,
+    against autograd and jax.grad where the head count is 1, 3 or 5 and
+    where the sequence is shorter than one 64-token tile: with an initial
+    state and a final-state gradient, state dim 16."""
+    v = _inputs(layout, 16, True, True)
+    chunk = HEAD_LAYOUTS[layout][4]
+    t = {k: torch.from_numpy(a) for k, a in v.items()}
+    got = ssd_chunked_bwd(t["x"], t["dt"], t["a"], t["b"], t["c"],
+                          t["d_skip"], chunk, t["init"], None, t["dy"],
+                          t["dfinal"])
+    for name, g, wt, wj in zip(GRADS, got, _torch_grads(v, chunk, ssd_chunked),
+                               _jax_grads(v, chunk)):
+        _close(g.numpy(), wt, f"{name} against autograd")
+        _close(g.numpy(), wj, f"{name} against jax.grad")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 2048, 32, 64, 128), torch.bfloat16),   # mamba2-370m's training step
+    ((1, 2048, 128, 64, 128), torch.bfloat16),  # jamba-v0.1-52b's heads
+    ((4, 2048, 32, 64, 128), torch.float32),
+    ((2, 320, 5, 96, 16), torch.bfloat16),      # a ragged chunk, two slices
+    ((1, 40, 1, 16, 64), torch.float32),        # shorter than one tile
+])
+def test_gradient_workspace_from_shapes(shape, dtype):
+    """``backward.workspace``: the gradient kernel's scratch from shapes
+    alone, at the forward's state chunks: the head groups of its pair
+    pass, the tile pairs of each chunk, the column blocks of dC and dB and
+    the recurrence's blocks a head, each array's elements by its closed
+    form; and ``_carve`` starts every array on a 16-byte boundary."""
+    bsz, S, H, P, N = shape
+    ws = SB.workspace(bsz, S, H, P, N, dtype)
+    pl = SK.plan(bsz, S, H, P, N, dtype)
+    L, n = pl.chunk, pl.n_chunks
+    assert (ws.chunk, ws.n_chunks) == (L, n)
+    T = L // 64
+    assert ws.tiles == T and L % 64 == 0
+    assert ws.groups == -(-H // 8) and ws.groups * 8 >= H
+    assert ws.col_blocks == (2 if N == 128 else 1)
+    assert ws.recur_blocks == -(-(P * N) // 1024)
+    rows = bsz * n * H
+    assert (ws.cum, ws.colp, ws.dapart, ws.dec) == (rows * L, rows * L,
+                                                   rows, rows)
+    assert ws.rowp == rows * T * L and ws.upart == ws.ddpart == rows * T
+    assert ws.offp == rows * ws.col_blocks * L
+    assert ws.gspart == rows * ws.recur_blocks
+    assert ws.mpart == ws.groups * bsz * n * T * (T + 1) // 2 * 64 * 64
+    planes = 2 if dtype == torch.bfloat16 else 1
+    assert ws.dstates == bsz * n * H * P * N
+    assert ws.gstates == planes * ws.dstates == pl.prev_elems
+    if shape == (4, 2048, 32, 64, 128) and dtype == torch.bfloat16:
+        # 7t's step: 8 chunks of 256, 4 head groups, 10 tile pairs a chunk
+        assert (L, n, ws.groups, T * (T + 1) // 2) == (256, 8, 4, 10)
+        assert 4 * ws.mpart == 4 * 4 * 32 * 10 * 4096   # 21 MB of f32
+    sizes = (ws.mpart, ws.dstates, ws.dec, 3, 5)
+    views = SB._carve(torch.empty(SB._total16(sizes, 4)), sizes)
+    assert [v.numel() for v in views] == list(sizes)
+    assert all(v.data_ptr() % 16 == 0 for v in views)
 
 
 def test_plain_gradient_reads_the_kept_states():
